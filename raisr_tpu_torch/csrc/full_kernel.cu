@@ -1,18 +1,24 @@
-// Whole RAISR pass (ratio 2, float32 tier) for Hopper (sm_90a).
+// Whole RAISR pass (float32 tier) for Hopper (sm_90a), for 4-phase (ratio 2)
+// and single-phase (ratio 1.5) filter banks.
 //
-// Replaces the TPU kernel raisr_tpu/ops/pallas/full_kernel.py:_full_kernel
-// (entered through raisr_pass_pallas_full). One pass takes the integer-valued
-// cheap-upscaled plane and returns the integer-valued pass output:
+// Replaces two TPU kernels of raisr_tpu/ops/pallas/full_kernel.py:
+//   _full_kernel        (entered through raisr_pass_pallas_full), 4 phases;
+//   _full_kernel_single (entered through raisr_pass_pallas_full_single), 1.
+// They differ only in how a pixel picks its filter row: bank row
+// bucket * 4 + phase for a 4-phase bank, bucket for a single-phase one. Here
+// that is a template parameter of one kernel (kPhases), not a second copy.
+// One pass takes the integer-valued cheap-upscaled plane and returns the
+// integer-valued pass output:
 //   gradients -> separable 11-tap Gaussian structure tensor * nf ->
 //   2x2 eigen-analysis, polynomial atan2, angle/strength/coherence bucket ->
-//   121-tap dot of the (bucket, phase) filter with the 11x11 patch ->
+//   121-tap dot of the (bucket[, phase]) filter with the 11x11 patch ->
 //   exclusive range reject -> processed-zone mask -> census blend
 //   (CountOfBitsChanged or Randomness) -> floor(+0.5), clamp -> blend zone.
-// Zones follow a guard-banded frame stack (frame_h/frame_pad) and row
-// stripes (row0/zone_h), as in the TPU kernel.
+// Zones follow a guard-banded frame stack (frame_h/frame_pad, any pad, odd
+// ones included) and row stripes (row0/zone_h), as in the TPU kernels.
 //
-// The TPU kernel multiplies every patch against all 216 buckets on the MXU and
-// selects one, because a TPU has no per-lane gather. Here each thread gathers
+// The TPU kernels multiply every patch against all 216 buckets on the MXU and
+// select one, because a TPU has no per-lane gather. Here each thread gathers
 // its own bucket's filter row and runs plain float32 multiply-adds on the
 // natural [H, W] plane, in two launches:
 //   A (hash_filter_kernel): one block per 32x8 output tile stages the cheap
@@ -24,10 +30,13 @@
 //
 // What bounds it on an H100: launch A gathers about 484 B of filter (121 taps)
 // per pixel and does 121 multiplies and adds, over 8.3 M pixels per 4K plane.
-// The 864 x 128 float32 bank (442 KB) stays resident in the 50 MB L2 and is
-// read through the read-only path in 16-byte loads; the patch comes from
-// shared memory. Staging a phase's bank in shared memory, fusing the two
-// launches and wgmma are later work.
+// The bank (864 x 128 float32, 442 KB; single-phase 216 x 128, 110.6 KB)
+// stays resident in the 50 MB L2 and is read through the read-only path in
+// 16-byte loads; the patch comes from shared memory. Later work: a
+// single-phase bank (110.6 KB) fits whole in the 227 KB of shared memory a
+// block can use, so staging it there is the first redesign to try for the
+// 1.5x kernel (a 4-phase bank needs one phase at a time, 105 KB); fusing the
+// two launches and wgmma come after.
 //
 // Rounding: every sum and product is rounded on its own, in the order of the
 // plain PyTorch version (raisr_tpu_torch/ops/cuda/full_kernel.py
@@ -46,7 +55,6 @@ constexpr int kMargin = kPatch / 2;       // patch margin, 5
 constexpr int kLoopMargin = kMargin + 1;  // processed-zone margin, 6
 constexpr int kTaps = kPatch * kPatch;    // 121
 constexpr int kFilterStride = 128;        // taps per bank row, zero-padded
-constexpr int kPixelTypes = 4;            // ratio-2 phases
 constexpr int kMaxEdges = 8;
 
 constexpr int kTileW = 32;
@@ -118,6 +126,9 @@ __device__ __forceinline__ int hash_bucket(float a, float b, float d,
   return ai * (hp.qstrength * hp.qcoherence) + si * hp.qcoherence + ci;
 }
 
+// kPhases: 4 (ratio-2 bank, rows bucket * 4 + phase) or 1 (single-phase
+// bank, rows bucket).
+template <int kPhases>
 __global__ void __launch_bounds__(kTileW * kTileH)
 hash_filter_kernel(const float* __restrict__ cheap,
                    const float* __restrict__ filters, float* __restrict__ raw,
@@ -192,11 +203,15 @@ hash_filter_kernel(const float* __restrict__ cheap,
     st[m] = acc * hp.nf;
   }
   const int bucket = hash_bucket(st[0], st[1], st[2], hp);
-  // pixel phase ((r-5) mod 2, (c-5) mod 2); & 1 is a floor modulo for r < 5
-  const int phase = (((r - kMargin) & 1) << 1) | ((c - kMargin) & 1);
+  int row = bucket;
+  if (kPhases == 4) {
+    // pixel phase ((r-5) mod 2, (c-5) mod 2); & 1 is a floor modulo for r < 5
+    const int phase = (((r - kMargin) & 1) << 1) | ((c - kMargin) & 1);
+    row = bucket * kPhases + phase;
+  }
 
   const float4* frow = reinterpret_cast<const float4*>(
-      filters + static_cast<size_t>(bucket * kPixelTypes + phase) * kFilterStride);
+      filters + static_cast<size_t>(row) * kFilterStride);
   float acc = 0.0f;
 #pragma unroll
   for (int q = 0; q < (kTaps + 3) / 4; ++q) {
@@ -307,15 +322,16 @@ class DeviceGuard {
 }  // namespace
 
 // Launch A. Host arrays k1d[11], qstr[n_qstr], qcoh[n_qcoh] are copied into
-// the kernel's parameters. filters is [qangle*qstrength*qcoherence*4, 128],
-// 16-byte aligned. Returns a cudaError_t value (0 on success).
+// the kernel's parameters. filters is [qangle*qstrength*qcoherence*phases,
+// 128], 16-byte aligned; phases is 4 or 1. Returns a cudaError_t value (0 on
+// success).
 extern "C" int raisr_full_hash_filter(
     const float* cheap, const float* filters, float* raw, int h, int w,
-    const float* k1d, float nf, const float* qstr, int n_qstr,
+    int phases, const float* k1d, float nf, const float* qstr, int n_qstr,
     const float* qcoh, int n_qcoh, int qangle, int qstrength, int qcoherence,
     float angle_scale, int device, void* stream) {
-  if (h <= 0 || w <= 0 || n_qstr < 0 || n_qstr > kMaxEdges || n_qcoh < 0 ||
-      n_qcoh > kMaxEdges || qangle <= 0) {
+  if (h <= 0 || w <= 0 || (phases != 1 && phases != 4) || n_qstr < 0 ||
+      n_qstr > kMaxEdges || n_qcoh < 0 || n_qcoh > kMaxEdges || qangle <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DeviceGuard guard(device);
@@ -334,8 +350,12 @@ extern "C" int raisr_full_hash_filter(
   hp.angle_scale = angle_scale;
   const dim3 block(kTileW, kTileH);
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
-  hash_filter_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      cheap, filters, raw, h, w, hp);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (phases == 4) {
+    hash_filter_kernel<4><<<grid, block, 0, st>>>(cheap, filters, raw, h, w, hp);
+  } else {
+    hash_filter_kernel<1><<<grid, block, 0, st>>>(cheap, filters, raw, h, w, hp);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

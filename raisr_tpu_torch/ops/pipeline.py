@@ -6,9 +6,10 @@ The pass epilogue and its zone semantics (processed_col_end, _finish_pass)
 live in ops/epilogue.py, which the fused kernel's wrapper shares.
 
 Backends: "pallas" runs the fused pass (ops/cuda/full_kernel.py: the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor); "taps" is the
-unfused reference formulation in plain PyTorch on any device. Where raisr_tpu
-uses `vmap`, this module loops over the frames.
+kernel on a CUDA tensor, its plain version on a CPU tensor) for ratio-2
+(4-phase) and single-phase (1.5x) banks; "taps" is the unfused reference
+formulation in plain PyTorch on any device. Where raisr_tpu uses `vmap`, this
+module loops over the frames.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from raisr_tpu_torch.ops import hashing
 from raisr_tpu_torch.ops.cuda.full_kernel import raisr_pass_full
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
 from raisr_tpu_torch.ops.filter_apply import apply_filters_taps
-from raisr_tpu_torch.ops.resize import cheap_upscale
+from raisr_tpu_torch.ops.resize import cheap_upscale, cheap_upscale_stacked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,11 +84,8 @@ def raisr_pass(
     qstr, qcoh = s.bank_edges[pass_idx]
 
     if s.backend == "pallas":
-        if not s.use_pixel_type:
-            raise RaisrError(
-                "the fused CUDA pass takes ratio-2 (4-phase) banks only; the "
-                "single-phase (1.5x) kernel is ROADMAP B5."
-            )
+        # whole pass in one fused call: 4-phase for ratio-2 banks, else the
+        # single-phase form (pass_statics refuses any other bank)
         return raisr_pass_full(
             cheap,
             filters,
@@ -105,6 +103,7 @@ def raisr_pass(
             exact_edges=s.exact_edges,
             frame_h=frame_h,
             frame_pad=frame_pad,
+            pixel_types=4 if s.use_pixel_type else 1,
         )
     if s.backend != "taps":
         raise RaisrError(f"backend {s.backend!r} is not ported to raisr_tpu_torch.")
@@ -136,12 +135,21 @@ _LATER_TIERS = {
 
 
 def pass_statics(cfg: RaisrConfig, model: RaisrModel, backend: str) -> PassStatics:
-    """Static pass parameters. The fused backend runs the float32 tier only;
-    the taps backend ignores the tier, as in raisr_tpu."""
+    """Static pass parameters. The fused backend runs the float32 tier only,
+    for ratio-2 (4-phase) and single-phase banks; the taps backend ignores the
+    tier, as in raisr_tpu."""
     if backend == "pallas" and cfg.dtype in _LATER_TIERS:
         raise RaisrError(
             f"dtype {cfg.dtype} is not ported to the CUDA kernel yet: "
             f"{_LATER_TIERS[cfg.dtype]}."
+        )
+    pixel_types = model.banks[0].pixel_types
+    if backend == "pallas" and not cfg.use_pixel_type and pixel_types != 1:
+        # raisr_tpu sends these banks to its unfused Pallas filter kernels
+        raise RaisrError(
+            f"ratio {cfg.ratio} with a bank of {pixel_types} pixel types needs "
+            "the unfused filter kernels, which are ROADMAP B6; use "
+            "backend=reference."
         )
     bank_edges = tuple(
         (tuple(float(v) for v in b.qstr), tuple(float(v) for v in b.qcoh))
@@ -152,7 +160,7 @@ def pass_statics(cfg: RaisrConfig, model: RaisrModel, backend: str) -> PassStati
         qstrength=model.qstrength,
         qcoherence=model.qcoherence,
         patch_size=model.patch_size,
-        pixel_types=model.banks[0].pixel_types,
+        pixel_types=pixel_types,
         use_pixel_type=cfg.use_pixel_type,
         ratio_int=int(cfg.ratio),
         bits=cfg.bits,
@@ -220,8 +228,11 @@ def process_plane_y_batch(
     its zone masks per frame (raisr_pass frame_h/frame_pad), so the result is
     exactly process_plane_y of each frame: the guard band exceeds the one-pass
     support radius of ~8 rows (5 patch + 1 tensor + 1 gradient + 1 census).
-    Frames stay stacked across passes. Any other backend or ratio loops over
-    the frames."""
+    Frames stay stacked across passes. The stack needs the fused backend,
+    the bilinear resize and a ratio that scales the guard and the period to
+    whole rows (2x always; 1.5x when h divides 1.5 * guard, e.g. 1080 ->
+    1620 with a 9-row HR guard in mode 1, 18 in mode 2); anything else
+    loops over the frames."""
     n, h, w = batch_lr.shape
     s = statics
     # LR guard: 6 rows covers the resize support; when pass 1 runs at LR
@@ -229,10 +240,10 @@ def process_plane_y_batch(
     lr_pad = 12 if (passes == 2 and two_pass_mode == 2) else 6
     stackable = (
         s.backend == "pallas"
-        and s.use_pixel_type
+        and (s.use_pixel_type or s.pixel_types == 1)
         and s.resize_mode == "bilinear"
-        and out_h == 2 * h
-        and out_w == 2 * w
+        and (out_h * lr_pad) % h == 0
+        and (out_h * (h + 2 * lr_pad)) % h == 0
     )
     if not stackable:
         return torch.stack([
@@ -247,10 +258,17 @@ def process_plane_y_batch(
 
     for pass_idx in range(passes):
         if pass_idx + 1 == two_pass_mode:
-            # 2x: the slice-based resize has fixed per-row weights, so the
-            # whole-stack upscale equals the per-frame one
-            cheap = cheap_upscale(x, 2 * x.shape[0], out_w, s.bits)
-            cur_fh, cur_pad = out_h, 2 * cur_pad
+            if out_h == 2 * h and out_w == 2 * w:
+                # 2x: the slice-based resize has fixed per-row weights, so
+                # the whole-stack upscale equals the per-frame one
+                cheap = cheap_upscale(x, 2 * x.shape[0], out_w, s.bits)
+            else:
+                # other ratios: per-frame weight vectors tiled over the
+                # stack, so frame rows equal the per-frame upscale exactly
+                cheap = cheap_upscale_stacked(
+                    x, n, h, cur_pad, out_h, cur_pad * out_h // h, out_w, s.bits
+                )
+            cur_fh, cur_pad = out_h, cur_pad * out_h // h
         else:
             cheap = x
         x = raisr_pass(
@@ -271,7 +289,7 @@ def process_plane_uv(
 ) -> torch.Tensor:
     """Chroma planes only get the cheap upscale (Raisr.cpp:1373-1388).
 
-    `lr` is one plane [H, W] or a batch [N, H, W]: the 2x upscale works on the
-    last two dims, so each frame gets its own edge clamp. This one function
+    `lr` is one plane [H, W] or a batch [N, H, W]: the upscale works on the
+    last two dims at any ratio, so each frame gets its own edge clamp. This one function
     stands for raisr_tpu's process_plane_uv and process_plane_uv_batch."""
     return cheap_upscale(lr.to(torch.float32), out_h, out_w, bits, mode=mode)

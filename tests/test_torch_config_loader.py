@@ -120,6 +120,30 @@ def test_from_jax_model_round_trips(tmp_path):
         assert np.array_equal(jb.filters, bb.filters)
 
 
+def test_single_phase_bank_loads_and_converts(tmp_path):
+    """A 1.5x (single-phase, 216 x 128) bank: the port's loader reads the
+    JAX exporter's folder bit for bit at ratio 1.5, and from_jax_model /
+    bank_tensors carry the 216-row bank and its pixel_types."""
+    jm = make_jax_model(passes=2, seed=7, pixel_types=1)
+    folder = str(tmp_path / "bank_15x")
+    jexport.save_filter_folder(folder, list(jm.banks), bits=8)
+    cfg_kw = dict(passes=2, ratio=1.5)
+    jl = jloader.load_model(folder, jcfg.RaisrConfig(**cfg_kw))
+    tl = tloader.load_model(folder, tcfg.RaisrConfig(**cfg_kw))
+    for jb, tb in zip(jl.banks, tl.banks):
+        assert tb.filters.shape == (216, 128) and tb.pixel_types == jb.pixel_types == 1
+        assert np.array_equal(tb.filters, jb.filters)
+    # a single-phase bank does not load at ratio 2 (4 pixel types expected)
+    with pytest.raises(tcfg.RaisrError, match="pixel types"):
+        tloader.load_model(folder, tcfg.RaisrConfig(passes=2))
+    tm = tloader.from_jax_model(jm)
+    filters, _, _ = tloader.bank_tensors(tm, "cpu")
+    for f, jb, tb in zip(filters, jm.banks, tm.banks):
+        assert tb.pixel_types == 1 and tb.hashkey_size == 216
+        assert f.shape == (216, 128) and f.is_contiguous()
+        assert np.array_equal(f.numpy(), jb.filters)
+
+
 def test_bank_tensors_cpu():
     tm = tloader.from_jax_model(make_jax_model(passes=2, seed=4))
     filters, qstr, qcoh = tloader.bank_tensors(tm, "cpu")

@@ -123,6 +123,12 @@ def test_backend_resolution_and_refusals(models):
         RaisrEngine(RaisrConfig(), tm, shard="data=2", device="cpu")
     with pytest.raises(RaisrError, match="ROADMAP B2"):
         RaisrEngine(RaisrConfig(backend="pallas", dtype="bfloat16"), tm, device="cpu")
+    # ratio 1.5 with a single-phase bank is served by the fused backend
+    m15 = from_jax_model(make_jax_model(passes=1, seed=2, pixel_types=1))
+    eng15 = RaisrEngine(RaisrConfig(ratio=1.5, backend="pallas"), m15, device="cpu")
+    assert eng15._backend == "pallas" and eng15._statics.pixel_types == 1
+    assert tuple(eng15.process_batch_device(
+        torch.full((1, 16, 24), 100, dtype=torch.uint8))[0].shape) == (1, 24, 36)
     eng = RaisrEngine(RaisrConfig(passes=2), tm, device="cpu")
     with pytest.raises(RaisrError, match="meta"):
         eng.process_batch_device(torch.empty((1, 8, 8), dtype=torch.uint8, device="meta"))

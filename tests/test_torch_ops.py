@@ -58,10 +58,12 @@ def test_cheap_upscale_2x_bit_identical(h, w, bits):
 
 def test_cheap_upscale_unported_modes_raise():
     img = _t(smooth(8, 8))
-    with pytest.raises(RaisrError):
-        t_cheap(img, 12, 12, 8)
-    with pytest.raises(RaisrError):
-        t_cheap(img, 16, 16, 8, mode="cubic")
+    # every bilinear ratio is ported (tests/test_torch_resize.py) ...
+    assert tuple(t_cheap(img, 12, 12, 8).shape) == (12, 12)
+    # ... the cubic and lanczos resamplers are not
+    for mode in ("cubic", "lanczos"):
+        with pytest.raises(RaisrError, match=mode):
+            t_cheap(img, 16, 16, 8, mode=mode)
 
 
 def test_gradients_bit_identical():
@@ -212,3 +214,21 @@ def test_pass_statics_tiers():
             t_statics(RaisrConfig(dtype=dtype), tm, "pallas")
         # the taps backend ignores the tier, as in raisr_tpu
         assert t_statics(RaisrConfig(dtype=dtype), tm, "taps").backend == "taps"
+
+
+def test_pass_statics_single_phase():
+    """A 1.5x config with a single-phase bank: the fused backend takes it at
+    the float32 tier, with raisr_tpu's statics; the bf16 tiers name B2/B4."""
+    jm = make_jax_model(passes=1, pixel_types=1)
+    tm = from_jax_model(jm)
+    s = t_statics(RaisrConfig(ratio=1.5), tm, "pallas")
+    js = j_statics(JConfig(ratio=1.5), jm, "pallas")
+    assert (s.pixel_types, s.use_pixel_type, s.ratio_int) == (
+        js.pixel_types, js.use_pixel_type, js.ratio_int) == (1, False, 1)
+    assert s.bank_edges == js.bank_edges
+    for dtype in ("bfloat16", "bfloat16_exact"):
+        with pytest.raises(RaisrError, match="B2"):
+            t_statics(RaisrConfig(ratio=1.5, dtype=dtype), tm, "pallas")
+    # a 2x bank (4 pixel types) at ratio 1.5 has no fused form
+    with pytest.raises(RaisrError, match="ROADMAP B6"):
+        t_statics(RaisrConfig(ratio=1.5), from_jax_model(make_jax_model(1)), "pallas")

@@ -17,29 +17,32 @@ QSTR = (0.001269, 0.022169)
 QCOH = (0.192916, 0.405942)
 
 
-def make_filters(rng: np.random.Generator) -> np.ndarray:
-    """One pass's 2x bank of the real shape (216 buckets x 4 phases x 121 taps,
-    rows padded to 128): centre tap 1 plus noise of 0.01."""
-    filters = np.zeros((864, 128), np.float32)
-    filters[:, :121] = rng.normal(size=(864, 121)).astype(np.float32) * 0.01
+def make_filters(rng: np.random.Generator, pixel_types: int = 4) -> np.ndarray:
+    """One pass's bank of the real shape (216 buckets x pixel_types phases x
+    121 taps, rows padded to 128; 4 phases for 2x, 1 for 1.5x): centre tap 1
+    plus noise of 0.01."""
+    rows = 216 * pixel_types
+    filters = np.zeros((rows, 128), np.float32)
+    filters[:, :121] = rng.normal(size=(rows, 121)).astype(np.float32) * 0.01
     filters[:, 60] += 1.0
     return filters
 
 
-def make_jax_model(passes: int = 2, seed: int = 0):
-    """A raisr_tpu RaisrModel of `passes` seeded 2x banks (make_filters)."""
+def make_jax_model(passes: int = 2, seed: int = 0, pixel_types: int = 4):
+    """A raisr_tpu RaisrModel of `passes` seeded banks (make_filters): 2x
+    banks, or single-phase (1.5x) banks with pixel_types=1."""
     from raisr_tpu.model.loader import FilterBank, RaisrModel
 
     rng = np.random.default_rng(seed)
     banks = []
     for _ in range(passes):
-        filters = make_filters(rng)
+        filters = make_filters(rng, pixel_types)
         banks.append(
             FilterBank(
                 filters=filters,
                 qstr=np.asarray(QSTR, np.float32),
                 qcoh=np.asarray(QCOH, np.float32),
-                pixel_types=4,
+                pixel_types=pixel_types,
                 taps=121,
                 source_dtype="fp32",
             )
