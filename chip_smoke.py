@@ -31,6 +31,25 @@ and for the 1.5x path (the single-phase kernel):
   9. times the single-phase kernel against its plain version, the 1.5x
      stacked resize and the 1.5x serving step; with --profile DIR it also
      traces 10 of those steps into DIR/step15_trace.json.
+then the filter kernels, the bf16 tier and the 2.5x route:
+ 10. holds the filter apply (apply_filters: filter_apply_kernel<4> on pass 1's
+     8736x3840 stack with the plain hash's buckets and on a 4K plane with
+     uniform buckets in [-8, 232); <1> on the 1.5x path's 6552x2880 stack)
+     and launch A alone (apply_filters_hash, on the stack) against their plain
+     versions, and the staged pass (apply_filters, then the epilogue) against
+     the fused pass, bit for bit; times the plain hash, apply_filters,
+     apply_filters_hash and the fused pass, which splits launch A into hash
+     and gather;
+ 11. the 8-bit bf16 tier (dtype="auto"): the bf16 kernel against its plain
+     version on a 4K plane (both blendings) and a 1620x2880 plane (1 phase);
+     both paths through process_batch_device, eager and as a replayed CUDA
+     graph, every frame against the plain bf16 passes; prints the difference
+     to the float32 frames and the step times beside the float32 ones; with
+     --profile DIR it also traces 10 steps of each path into
+     DIR/step_bf16_2x_trace.json and DIR/step_bf16_1.5x_trace.json;
+ 12. a 2x bank at 2.5x (one 1080p frame to 2700x4800, 1 pass): the
+     single-phase kernel over the bank's phase-0 rows, against the plain pass
+     and the taps engine.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Its last line is {"ok": true, "device": {...}}. It imports nothing of jax or
 raisr_tpu, and exits non-zero, with no result line, when there is no CUDA
@@ -220,9 +239,11 @@ def profile_steps(step, out_dir: str, card: str, steps: int = 10,
           f"of the traced window = {100 * busy / (t1 - t0):.1f}%")
 
 
-def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None) -> dict:
+def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
     """Phases 6-9: the 1.5x path (single-phase kernel) on the frames of the
-    2x phases. Returns the kernel's entry of the `kernels` line."""
+    2x phases. Returns the kernel's entry of the `kernels` line, and what the
+    later phases reuse: the bank, its launch arguments, the 1620x2880 plane,
+    the stack, the served frames and the step time."""
     import torch
 
     from raisr_tpu_torch import RaisrConfig, RaisrEngine
@@ -304,16 +325,7 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None) -> dict:
     print("phase 7 U/V equal process_plane_uv: yes")
 
     # -- phase 8: CUDA graph capture of the 1.5x step --------------------------
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        engine.process_batch_device(y, u, v)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        gy, gu, gv = engine.process_batch_device(y, u, v)
-    graph.replay()
-    torch.cuda.synchronize()
+    (gy, gu, gv), graph = graph_step(engine, y, u, v)
     same = torch.equal(gy, oy) and torch.equal(gu, ou) and torch.equal(gv, ov)
     print(f"phase 8 CUDA graph replay of the 1.5x step equals eager: {same}")
     if not same:
@@ -339,7 +351,7 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None) -> dict:
     if profile_dir:
         profile_steps(lambda: engine.process_batch_device(y, u, v), profile_dir, card,
                       phase=9, name="step15_trace.json")
-    return {
+    row = {
         "name": "full_kernel_single",
         "route": "cuda",
         "source": "raisr_tpu_torch/csrc/full_kernel.cu",
@@ -349,6 +361,304 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None) -> dict:
         "ms": ms_kernel,
         "plain_ms": ms_plain,
     }
+    ctx = dict(model=model, filters=filters, kw=kw, cheap=cheap, stack=stack,
+               skw=skw, oy=oy, ms_step=ms_step, ms_graph=ms_graph)
+    return row, ctx
+
+
+def psnr(a, b, peak: float = 255.0) -> float:
+    import math
+
+    import torch
+
+    mse = float(((a.to(torch.float64) - b.to(torch.float64)) ** 2).mean())
+    return math.inf if mse == 0 else 10 * math.log10(peak * peak / mse)
+
+
+def kernel_row(name: str, source: str, replaces: str, launches: int, errs,
+               ms: float, plain_ms: float) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(errs), "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
+    """Phase 10: the filter apply (apply_filters, both phase counts) and
+    launch A alone (apply_filters_hash) on the 2x and 1.5x paths' own planes,
+    each held against its plain version, bit for bit; the staged pass
+    (apply_filters, then the epilogue) against the fused pass; then times
+    that split launch A into hash and gather. Returns three `kernels` rows."""
+    import torch
+
+    from raisr_tpu_torch.ops import pipeline
+    from raisr_tpu_torch.ops.cuda import filter_kernel as flk
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
+    from raisr_tpu_torch.ops.resize import cheap_upscale
+
+    out_h, out_w = 2 * LR_H, 2 * LR_W
+    f = torch.tensor(model.banks[0].filters, device=dev)
+    hkw = dict(k1d=kw["k1d"], nf=kw["nf"],
+               qstr=tuple(float(q) for q in model.banks[0].qstr),
+               qcoh=tuple(float(q) for q in model.banks[0].qcoh))
+    pkw = dict(kw, **hkw, blending=2)
+    f15, cheap15, stack15 = c15["filters"], c15["cheap"], c15["stack"]
+    hkw15 = {k: c15["kw"][k] for k in ("k1d", "nf", "qstr", "qcoh")}
+    cheap = cheap_upscale(y[0].to(torch.float32), out_h, out_w, 8)
+    # pass 1's input on the 2x path: the 4-frame guard-banded stack
+    lr_pad = 6
+    stack = cheap_upscale(pipeline.guard_band_stack(y.to(torch.float32), lr_pad),
+                          2 * (LR_H + 2 * lr_pad) * N_FRAMES, out_w, 8)
+    skw = dict(pkw, frame_h=out_h, frame_pad=2 * lr_pad)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rand = torch.randint(-8, 232, cheap.shape, generator=gen, device=dev,
+                         dtype=torch.int32)
+    buckets = flk.hash_buckets_reference(cheap, **hkw)
+    buckets_stack = flk.hash_buckets_reference(stack, **hkw)
+    buckets15 = flk.hash_buckets_reference(stack15, **hkw15)
+    torch.cuda.synchronize()
+
+    def finish(x, raw, frame_h, frame_pad):
+        return _finish_pass(x, raw, min_val=kw["min_val"], max_val=kw["max_val"],
+                            blending=2, loop_margin=6,
+                            col_end=processed_col_end(x.shape[1], 6, True),
+                            frame_h=frame_h, frame_pad=frame_pad)
+
+    # the path of this phase: each kernel on the planes the serving paths
+    # hand the fused pass, with the counts set to 0 just before
+    flk.LAUNCHES = flk.SINGLE_LAUNCHES = flk.HASH_LAUNCHES = 0
+    raw_stack = flk.apply_filters(stack, buckets_stack, f)
+    raw_rand = flk.apply_filters(cheap, rand, f)
+    raw_hash = flk.apply_filters_hash(stack, f, **hkw)
+    raw15 = flk.apply_filters(stack15, buckets15, f15, pixel_types=1, ratio=1)
+    torch.cuda.synchronize()
+    counts = (flk.LAUNCHES, flk.SINGLE_LAUNCHES, flk.HASH_LAUNCHES)
+    print(f"phase 10 launches: apply_filters 4-phase {counts[0]}, 1-phase "
+          f"{counts[1]}, apply_filters_hash {counts[2]}")
+    if counts != (2, 1, 1):
+        raise SystemExit("phase 10 failed: launch counts")
+
+    errs4, errs1, errsh = [], [], []
+    errs4.append(hold("10 apply_filters", f"real buckets, the {tuple(stack.shape)} stack",
+                      raw_stack, flk.apply_filters_reference(stack, buckets_stack, f)))
+    errs4.append(hold("10 apply_filters", f"uniform buckets in [-8, 232), one "
+                      f"{out_h}x{out_w} plane", raw_rand,
+                      flk.apply_filters_reference(cheap, rand, f)))
+    bad = (rand < 0) | (rand >= 216)
+    if not bool((raw_rand[bad] == 0).all()):
+        raise SystemExit("phase 10 failed: an out-of-range bucket gave a non-zero raw")
+    errsh.append(hold("10 apply_filters_hash", f"the {tuple(stack.shape)} stack", raw_hash,
+                      flk.apply_filters_hash_reference(stack, f, **hkw)))
+    errs1.append(hold("10 apply_filters single-phase", f"real buckets, the "
+                      f"{tuple(stack15.shape)} stack", raw15,
+                      flk.apply_filters_reference(stack15, buckets15, f15, pixel_types=1)))
+    # the staged pass equals the fused pass, bit for bit; each result counts
+    # in the row of the kernel it holds
+    for errs, label, got, want in (
+        (errsh, "apply_filters_hash vs apply_filters on the plain hash", raw_hash, raw_stack),
+        (errs4, "staged 2x pass vs raisr_pass_full on the stack",
+         finish(stack, raw_stack, out_h, 2 * lr_pad), fk.raisr_pass_full(stack, f, **skw)),
+        (errs1, "staged 1.5x pass vs raisr_pass_full_single on the stack",
+         finish(stack15, raw15, c15["skw"]["frame_h"], c15["skw"]["frame_pad"]),
+         fk.raisr_pass_full_single(stack15, f15, **c15["skw"])),
+    ):
+        errs.append(hold("10 staged", label, got, want))
+
+    # times: launch A split into hash and gather, each against its plain version
+    t = {}
+    for name, x, b in (("plane", cheap, buckets), ("stack", stack, buckets_stack)):
+        t[name] = dict(
+            hash_plain=cuda_ms(lambda: flk.hash_buckets_reference(x, **hkw), 3),
+            apply=cuda_ms(lambda: flk.apply_filters(x, b, f), 20, 3),
+            apply_plain=cuda_ms(lambda: flk.apply_filters_reference(x, b, f), 3),
+            hash_apply=cuda_ms(lambda: flk.apply_filters_hash(x, f, **hkw), 20, 3),
+            hash_apply_plain=cuda_ms(lambda: flk.apply_filters_hash_reference(x, f, **hkw), 3),
+            fused=cuda_ms(lambda: fk.raisr_pass_full(x, f, **pkw), 20, 3),
+            fused_plain=cuda_ms(lambda: fk.raisr_pass_full_reference(x, f, **pkw), 3),
+        )
+    t["plane"]["apply_rand"] = cuda_ms(lambda: flk.apply_filters(cheap, rand, f), 20, 3)
+    t["plane"]["apply_rand_plain"] = cuda_ms(
+        lambda: flk.apply_filters_reference(cheap, rand, f), 3)
+    b15 = flk.hash_buckets_reference(cheap15, **hkw15)
+    ms15 = cuda_ms(lambda: flk.apply_filters(cheap15, b15, f15, pixel_types=1, ratio=1), 20, 3)
+    ms15_plain = cuda_ms(lambda: flk.apply_filters_reference(cheap15, b15, f15, pixel_types=1), 3)
+    ms15_stack = cuda_ms(lambda: flk.apply_filters(stack15, buckets15, f15, pixel_types=1,
+                                                   ratio=1), 10, 2)
+    for name, shape in (("plane", cheap.shape), ("stack", stack.shape)):
+        r = t[name]
+        print(f"phase 10 times on {card}, {tuple(shape)}: plain hash {r['hash_plain']:.3f} ms; "
+              f"apply_filters {r['apply']:.3f} ms (plain {r['apply_plain']:.3f}); "
+              f"apply_filters_hash {r['hash_apply']:.3f} ms (plain {r['hash_apply_plain']:.3f}); "
+              f"fused pass {r['fused']:.3f} ms (plain {r['fused_plain']:.3f}); gather share "
+              f"of launch A {100 * r['apply'] / r['hash_apply']:.1f}%")
+    print(f"phase 10 times on {card}: apply_filters with uniform buckets in [-8, 232) "
+          f"{t['plane']['apply_rand']:.3f} ms (plain {t['plane']['apply_rand_plain']:.3f}); "
+          f"single-phase apply_filters {tuple(cheap15.shape)} {ms15:.3f} ms (plain "
+          f"{ms15_plain:.3f}), over the {tuple(stack15.shape)} stack {ms15_stack:.3f} ms")
+    src = "raisr_tpu_torch/csrc/filter_kernel.cu"
+    return [
+        kernel_row("filter_kernel", src, "raisr_tpu/ops/pallas/filter_kernel.py:116",
+                   counts[0], errs4, t["plane"]["apply"], t["plane"]["apply_plain"]),
+        kernel_row("filter_kernel_single", src, "raisr_tpu/ops/pallas/filter_kernel.py:374",
+                   counts[1], errs1, ms15, ms15_plain),
+        kernel_row("hash_filter", "raisr_tpu_torch/csrc/full_kernel.cu",
+                   "raisr_tpu/ops/pallas/filter_kernel.py:514", counts[2], errsh,
+                   t["plane"]["hash_apply"], t["plane"]["hash_apply_plain"]),
+    ]
+
+
+def run_bf16(y, u, v, dev, card: str, model, kw: dict, c2: dict, c15: dict,
+             profile_dir: str | None) -> list[dict]:
+    """Phase 11: the 8-bit bf16 tier (dtype="auto"). The bf16 kernel against
+    its plain version on one 4K plane (both blendings) and one 1620x2880
+    plane (1 phase); both serving paths through process_batch_device, eager
+    and as a replayed CUDA graph, every frame against the plain bf16 passes;
+    the difference to the float32 frames and the step times, printed; with
+    --profile DIR, 10 traced steps of each path."""
+    import torch
+
+    from raisr_tpu_torch import RaisrConfig, RaisrEngine
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.resize import cheap_upscale
+
+    rows = []
+    for tag, mdl, bkw, cfg, plane, f32_oy, f32_ms in (
+        ("2x", model, kw, RaisrConfig(passes=PASSES, dtype="auto"),
+         cheap_upscale(y[0].to(torch.float32), 2 * LR_H, 2 * LR_W, 8), c2["oy"], c2["ms_step"]),
+        ("1.5x", c15["model"], c15["kw"],
+         RaisrConfig(ratio=1.5, passes=PASSES_15X, dtype="auto"), c15["cheap"], c15["oy"],
+         c15["ms_step"]),
+    ):
+        single = tag == "1.5x"
+        pt = 1 if single else 4
+        banks32 = [torch.tensor(b.filters, device=dev) for b in mdl.banks]
+        banks = [fk.round_bf16_error_diffused(b) for b in banks32]
+        edges = [dict(qstr=tuple(float(q) for q in b.qstr),
+                      qcoh=tuple(float(q) for q in b.qcoh)) for b in mdl.banks]
+        pk = dict(bkw, **edges[0], pixel_types=pt)
+        errs = []
+        for blending in (1, 2):
+            errs.append(hold(f"11 bf16 {tag} kernel", f"blending {blending}, one "
+                             f"{tuple(plane.shape)} plane",
+                             fk.raisr_pass_full(plane, banks[0], **dict(pk, blending=blending)),
+                             fk.raisr_pass_full_reference(plane, banks[0],
+                                                          **dict(pk, blending=blending))))
+        engine = RaisrEngine(cfg, mdl, device=dev)
+        torch.cuda.synchronize()
+        fk.LAUNCHES = fk.SINGLE_LAUNCHES = fk.BF16_LAUNCHES = fk.SINGLE_BF16_LAUNCHES = 0
+        oy, ou, ov = engine.process_batch_device(y, u, v)
+        torch.cuda.synchronize()
+        counts = (fk.LAUNCHES, fk.SINGLE_LAUNCHES, fk.BF16_LAUNCHES, fk.SINGLE_BF16_LAUNCHES)
+        launches = counts[3] if single else counts[2]
+        print(f"phase 11 bf16 {tag} path (dtype auto): Y {tuple(oy.shape)}, launches "
+              f"f32 {counts[0]}/{counts[1]}, bf16 {counts[2]}/{counts[3]} (4-phase/1-phase)")
+        if launches != len(mdl.banks) or sum(counts) != launches:
+            raise SystemExit(f"phase 11 failed: {tag} launch count")
+        out_h, out_w = oy.shape[1:]
+        for i in range(N_FRAMES):
+            x = cheap_upscale(y[i].to(torch.float32), out_h, out_w, 8)
+            for p, bank in enumerate(banks):
+                x = fk.raisr_pass_full_reference(x, bank, **dict(bkw, **edges[p], blending=2,
+                                                                  pixel_types=pt))
+            frac, med, mx = diff_stats(oy[i], x)
+            f_frac, _, f_mx = diff_stats(oy[i], f32_oy[i])
+            print(f"phase 11 bf16 {tag} Y frame {i}: vs plain bf16 passes differing "
+                  f"{frac:.6%}, max {mx}; vs the float32 frame differing {f_frac:.6%}, "
+                  f"largest {f_mx:g} LSB, PSNR {psnr(oy[i], f32_oy[i]):.2f} dB")
+            errs.append(mx)
+            if mx > KERNEL_MAX_ABS_ERR:
+                raise SystemExit(f"phase 11 failed: {tag} Y frame {i} against the plain passes")
+        (gy, gu, gv), graph = graph_step(engine, y, u, v)
+        same = torch.equal(gy, oy) and torch.equal(gu, ou) and torch.equal(gv, ov)
+        print(f"phase 11 bf16 {tag} CUDA graph replay equals eager: {same}")
+        if not same:
+            raise SystemExit(f"phase 11 failed: {tag} graph replay")
+        dkw = dict(pk, blending=2)
+        ms32 = cuda_ms(lambda: fk.raisr_pass_full(plane, banks32[0], **dkw), 20, 3)
+        ms16 = cuda_ms(lambda: fk.raisr_pass_full(plane, banks[0], **dkw), 20, 3)
+        ms16b = cuda_ms(lambda: fk.raisr_pass_full(plane, banks[0], **dkw), 20, 3)
+        ms32b = cuda_ms(lambda: fk.raisr_pass_full(plane, banks32[0], **dkw), 20, 3)
+        ms_plain = cuda_ms(lambda: fk.raisr_pass_full_reference(plane, banks[0], **dkw), 3)
+        ms_step = cuda_ms(lambda: engine.process_batch_device(y, u, v), 10, 2)
+        ms_graph = cuda_ms(graph.replay, 10, 2)
+        print(f"phase 11 times on {card}, {tag}: fused pass {tuple(plane.shape)} f32 / bf16 / "
+              f"bf16 / f32 {ms32:.3f} / {ms16:.3f} / {ms16b:.3f} / {ms32b:.3f} ms, bf16 plain "
+              f"{ms_plain:.3f} ms; bf16 serving step {N_FRAMES} frames eager {ms_step:.3f} ms "
+              f"= {N_FRAMES * 1000 / ms_step:.2f} frames/s, graph {ms_graph:.3f} ms = "
+              f"{N_FRAMES * 1000 / ms_graph:.2f} frames/s; float32 step eager {f32_ms:.3f} ms "
+              f"= {N_FRAMES * 1000 / f32_ms:.2f} frames/s")
+        if profile_dir:
+            profile_steps(lambda: engine.process_batch_device(y, u, v), profile_dir, card,
+                          phase=11, name=f"step_bf16_{tag}_trace.json")
+        rows.append(kernel_row(
+            "full_kernel_single_bf16" if single else "full_kernel_bf16",
+            "raisr_tpu_torch/csrc/full_kernel.cu",
+            "raisr_tpu/ops/pallas/full_kernel.py:" + ("952" if single else "82"),
+            launches, errs, ms16, ms_plain))
+    return rows
+
+
+def run_25x(y, dev, card: str, kw: dict) -> None:
+    """Phase 12: a 4-phase (2x) bank at 2.5x (ROADMAP C9), one 1080p frame to
+    2700x4800, 1 pass, through the engine on the card: the single-phase
+    kernel over the bank's phase-0 rows, against the plain pass and the taps
+    engine."""
+    import torch
+
+    from raisr_tpu_torch import RaisrConfig, RaisrEngine
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.resize import cheap_upscale
+
+    with tempfile.TemporaryDirectory() as folder:
+        model = make_bank(folder, passes=1, pixel_types=4, ratio=2.5, seed=25)
+    cfg = RaisrConfig(ratio=2.5, passes=1)
+    out_h, out_w = cfg.output_size(LR_H, LR_W)
+    engine = RaisrEngine(cfg, model, device=dev)
+    frame = y[:1]
+    torch.cuda.synchronize()
+    fk.LAUNCHES = fk.SINGLE_LAUNCHES = fk.BF16_LAUNCHES = fk.SINGLE_BF16_LAUNCHES = 0
+    oy = engine.process_batch_device(frame)[0]
+    torch.cuda.synchronize()
+    counts = (fk.LAUNCHES, fk.SINGLE_LAUNCHES, fk.BF16_LAUNCHES, fk.SINGLE_BF16_LAUNCHES)
+    print(f"phase 12 2.5x with a 4-phase bank: Y {tuple(oy.shape)}, launches f32 "
+          f"{counts[0]}/{counts[1]}, bf16 {counts[2]}/{counts[3]} (4-phase/1-phase)")
+    if tuple(oy.shape) != (1, out_h, out_w) or counts != (0, 1, 0, 0):
+        raise SystemExit("phase 12 failed: shape or launch count")
+    bank = model.banks[0]
+    phase0 = torch.tensor(bank.filters[0::4], device=dev).contiguous()
+    pkw = dict(kw, qstr=tuple(float(q) for q in bank.qstr),
+               qcoh=tuple(float(q) for q in bank.qcoh), blending=2)
+    cheap = cheap_upscale(frame[0].to(torch.float32), out_h, out_w, 8)
+    frac, med, mx = diff_stats(oy[0], fk.raisr_pass_full_single_reference(cheap, phase0, **pkw))
+    print(f"phase 12 Y vs the plain single-phase pass on the phase-0 rows: differing "
+          f"{frac:.6%}, max {mx}")
+    if mx > KERNEL_MAX_ABS_ERR:
+        raise SystemExit("phase 12 failed: Y against the plain pass")
+    ref = RaisrEngine(RaisrConfig(ratio=2.5, passes=1, backend="reference"), model, device=dev)
+    frac, med, mx = diff_stats(oy[0], ref.upscale_y(frame[0].to(torch.float32)))
+    print(f"phase 12 Y vs taps engine: differing {frac:.6%}, median {med}, max {mx}")
+    if not (frac < FUZZ_MAX_FRAC and med == 0.0):
+        raise SystemExit("phase 12 failed: Y against the taps engine")
+    ms = cuda_ms(lambda: engine.process_batch_device(frame), 10, 2)
+    print(f"phase 12 time on {card}: 2.5x step, 1 frame {out_h}x{out_w}, {ms:.3f} ms")
+
+
+def graph_step(engine, y, u, v):
+    """Warm up on a side stream, capture one serving step in a CUDA graph and
+    replay it. Returns the graph's outputs (Y, U, V) and the graph."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        engine.process_batch_device(y, u, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = engine.process_batch_device(y, u, v)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out, graph
 
 
 def main() -> int:
@@ -479,16 +789,7 @@ def main() -> int:
     print("phase 2 U/V equal process_plane_uv: yes")
 
     # -- phase 3: CUDA graph capture of the serving step ---------------------
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        engine.process_batch_device(y, u, v)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        gy, gu, gv = engine.process_batch_device(y, u, v)
-    graph.replay()
-    torch.cuda.synchronize()
+    (gy, gu, gv), graph = graph_step(engine, y, u, v)
     same = torch.equal(gy, oy) and torch.equal(gu, ou) and torch.equal(gv, ov)
     print(f"phase 3 CUDA graph replay equals eager: {same}")
     if not same:
@@ -510,17 +811,15 @@ def main() -> int:
     if args.profile:
         profile_steps(lambda: engine.process_batch_device(y, u, v), args.profile, card)
 
-    single = run_15x(y, u, v, dev, card, kw, args.profile)
-    print(json.dumps({"kernels": [{
-        "name": "full_kernel",
-        "route": "cuda",
-        "source": "raisr_tpu_torch/csrc/full_kernel.cu",
-        "replaces": "raisr_tpu/ops/pallas/full_kernel.py:82",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": ms_kernel,
-        "plain_ms": ms_plain,
-    }, single]}))
+    single, c15 = run_15x(y, u, v, dev, card, kw, args.profile)
+    rows = [kernel_row("full_kernel", "raisr_tpu_torch/csrc/full_kernel.cu",
+                       "raisr_tpu/ops/pallas/full_kernel.py:82", launches, errs,
+                       ms_kernel, ms_plain), single]
+    rows += run_filter(y, dev, card, model, kw, c15)
+    rows += run_bf16(y, u, v, dev, card, model, kw, dict(oy=oy, ms_step=ms_step), c15,
+                     args.profile)
+    run_25x(y, dev, card, kw)
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,5 +1,5 @@
-// Whole RAISR pass (float32 tier) for Hopper (sm_90a), for 4-phase (ratio 2)
-// and single-phase (ratio 1.5) filter banks.
+// Whole RAISR pass (float32 and 8-bit bfloat16 tiers) for Hopper (sm_90a), for
+// 4-phase (ratio 2) and single-phase (ratio 1.5) filter banks.
 //
 // Replaces two TPU kernels of raisr_tpu/ops/pallas/full_kernel.py:
 //   _full_kernel        (entered through raisr_pass_pallas_full), 4 phases;
@@ -7,6 +7,12 @@
 // They differ only in how a pixel picks its filter row: bank row
 // bucket * 4 + phase for a 4-phase bank, bucket for a single-phase one. Here
 // that is a template parameter of one kernel (kPhases), not a second copy.
+// The bank's element type is the other (TF): float for the float32 tier,
+// __nv_bfloat16 for the 8-bit bfloat16 tier, whose bank the host rounds to
+// bfloat16 with error diffusion along the taps (ops/cuda/full_kernel.py
+// round_bf16_error_diffused, as _round_bf16_error_diffused in the TPU kernel).
+// A bf16 tap times an 8-bit value is exact in float32, so that tier is the
+// float32 arithmetic on a 256-byte row instead of a 512-byte one.
 // One pass takes the integer-valued cheap-upscaled plane and returns the
 // integer-valued pass output:
 //   gradients -> separable 11-tap Gaussian structure tensor * nf ->
@@ -24,13 +30,18 @@
 //   A (hash_filter_kernel): one block per 32x8 output tile stages the cheap
 //     tile with a 6-pixel halo in shared memory (zero outside the plane),
 //     builds the gradient products and the vertical then horizontal tensor
-//     sums there, hashes, and writes the raw filter output.
+//     sums there, hashes, and writes the raw filter output (the gather-dot is
+//     gather_dot of raisr_common.cuh, shared with filter_kernel.cu). On its
+//     own, launch A is also the port of the TPU's hash + filter kernel
+//     _band_kernel_fused (filter_kernel.py, apply_filters_hash_pallas).
 //   B (epilogue_kernel): reject, zones, census blend and rounding per pixel,
 //     rebuilding each neighbour's HR value from its raw and cheap values.
 //
 // What bounds it on an H100: launch A gathers about 484 B of filter (121 taps)
-// per pixel and does 121 multiplies and adds, over 8.3 M pixels per 4K plane.
-// The bank (864 x 128 float32, 442 KB; single-phase 216 x 128, 110.6 KB)
+// per pixel (242 B at the bf16 tier) and does 121 multiplies and adds, over
+// 8.3 M pixels per 4K plane.
+// The bank (864 x 128 float32, 442 KB; single-phase 216 x 128, 110.6 KB;
+// half of each at the bf16 tier)
 // stays resident in the 50 MB L2 and is read through the read-only path in
 // 16-byte loads; the patch comes from shared memory. Later work: a
 // single-phase bank (110.6 KB) fits whole in the 227 KB of shared memory a
@@ -44,21 +55,17 @@
 // nvcc --fmad=false (no contraction to FMA) and IEEE division and sqrtf (the
 // nvcc defaults; never --use_fast_math).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
 
+#include "raisr_common.cuh"
+
 namespace {
 
-constexpr int kPatch = 11;
-constexpr int kMargin = kPatch / 2;       // patch margin, 5
-constexpr int kLoopMargin = kMargin + 1;  // processed-zone margin, 6
-constexpr int kTaps = kPatch * kPatch;    // 121
-constexpr int kFilterStride = 128;        // taps per bank row, zero-padded
 constexpr int kMaxEdges = 8;
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
 // cheap tile: patch rows/cols plus one more for the gradient stencil
 constexpr int kImgH = kTileH + 2 * kMargin + 2;  // 20
 constexpr int kImgW = kTileW + 2 * kMargin + 2;  // 44
@@ -127,11 +134,11 @@ __device__ __forceinline__ int hash_bucket(float a, float b, float d,
 }
 
 // kPhases: 4 (ratio-2 bank, rows bucket * 4 + phase) or 1 (single-phase
-// bank, rows bucket).
-template <int kPhases>
+// bank, rows bucket). TF: the bank's element type, float or __nv_bfloat16.
+template <int kPhases, typename TF>
 __global__ void __launch_bounds__(kTileW * kTileH)
 hash_filter_kernel(const float* __restrict__ cheap,
-                   const float* __restrict__ filters, float* __restrict__ raw,
+                   const TF* __restrict__ filters, float* __restrict__ raw,
                    int h, int w, HashParams hp) {
   __shared__ float s_img[kImgH][kImgW];
   __shared__ float s_gp[3][kGpH][kGpW];
@@ -210,22 +217,8 @@ hash_filter_kernel(const float* __restrict__ cheap,
     row = bucket * kPhases + phase;
   }
 
-  const float4* frow = reinterpret_cast<const float4*>(
-      filters + static_cast<size_t>(row) * kFilterStride);
-  float acc = 0.0f;
-#pragma unroll
-  for (int q = 0; q < (kTaps + 3) / 4; ++q) {
-    const float4 f4 = __ldg(frow + q);
-    const float fv[4] = {f4.x, f4.y, f4.z, f4.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int t = 4 * q + e;
-      if (t < kTaps) {
-        acc = acc + s_img[ty + 1 + t / kPatch][tx + 1 + t % kPatch] * fv[e];
-      }
-    }
-  }
-  raw[static_cast<size_t>(r) * w + c] = acc;
+  raw[static_cast<size_t>(r) * w + c] = gather_dot<kImgW>(
+      filters + static_cast<size_t>(row) * kFilterStride, &s_img[ty + 1][tx + 1]);
 }
 
 // Frame coordinate of a global row: identity for one frame; for a stack of
@@ -297,37 +290,15 @@ epilogue_kernel(const float* __restrict__ cheap, const float* __restrict__ raw,
   out[o] = fminf(fmaxf(floorf(val + 0.5f), p.min_val), p.max_val);
 }
 
-// Makes `device` current for one launch and restores the caller's device
-// afterwards, so a launch never changes the calling thread's device.
-class DeviceGuard {
- public:
-  explicit DeviceGuard(int device) {
-    err_ = cudaGetDevice(&prev_);
-    if (err_ == cudaSuccess && prev_ != device) {
-      err_ = cudaSetDevice(device);
-      switched_ = err_ == cudaSuccess;
-    }
-  }
-  ~DeviceGuard() {
-    if (switched_) cudaSetDevice(prev_);
-  }
-  cudaError_t error() const { return err_; }
-
- private:
-  int prev_ = -1;
-  bool switched_ = false;
-  cudaError_t err_ = cudaSuccess;
-};
-
 }  // namespace
 
 // Launch A. Host arrays k1d[11], qstr[n_qstr], qcoh[n_qcoh] are copied into
 // the kernel's parameters. filters is [qangle*qstrength*qcoherence*phases,
-// 128], 16-byte aligned; phases is 4 or 1. Returns a cudaError_t value (0 on
-// success).
+// 128], 16-byte aligned, float32 (filters_bf16 == 0) or bfloat16 (1); phases
+// is 4 or 1. Returns a cudaError_t value (0 on success).
 extern "C" int raisr_full_hash_filter(
-    const float* cheap, const float* filters, float* raw, int h, int w,
-    int phases, const float* k1d, float nf, const float* qstr, int n_qstr,
+    const float* cheap, const void* filters, int filters_bf16, float* raw,
+    int h, int w, int phases, const float* k1d, float nf, const float* qstr, int n_qstr,
     const float* qcoh, int n_qcoh, int qangle, int qstrength, int qcoherence,
     float angle_scale, int device, void* stream) {
   if (h <= 0 || w <= 0 || (phases != 1 && phases != 4) || n_qstr < 0 ||
@@ -351,10 +322,16 @@ extern "C" int raisr_full_hash_filter(
   const dim3 block(kTileW, kTileH);
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (phases == 4) {
-    hash_filter_kernel<4><<<grid, block, 0, st>>>(cheap, filters, raw, h, w, hp);
+  const float* f32 = static_cast<const float*>(filters);
+  const __nv_bfloat16* b16 = static_cast<const __nv_bfloat16*>(filters);
+  if (phases == 4 && filters_bf16) {
+    hash_filter_kernel<4><<<grid, block, 0, st>>>(cheap, b16, raw, h, w, hp);
+  } else if (phases == 4) {
+    hash_filter_kernel<4><<<grid, block, 0, st>>>(cheap, f32, raw, h, w, hp);
+  } else if (filters_bf16) {
+    hash_filter_kernel<1><<<grid, block, 0, st>>>(cheap, b16, raw, h, w, hp);
   } else {
-    hash_filter_kernel<1><<<grid, block, 0, st>>>(cheap, filters, raw, h, w, hp);
+    hash_filter_kernel<1><<<grid, block, 0, st>>>(cheap, f32, raw, h, w, hp);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,6 +19,7 @@ import torch
 from raisr_tpu_torch.config import RaisrConfig, Backend, RaisrError
 from raisr_tpu_torch.model.loader import load_model, RaisrModel, bank_tensors
 from raisr_tpu_torch.ops.pipeline import (
+    pass_banks,
     pass_statics,
     process_plane_y,
     process_plane_y_batch,
@@ -117,8 +118,10 @@ class RaisrEngine:
         self._statics = pass_statics(cfg, self.model, self._backend)
         self._np_out_dtype = np.uint8 if cfg.bits == 8 else np.uint16
         self._out_dtype = torch.uint8 if cfg.bits == 8 else torch.uint16
-        # the bin edges travel as floats in self._statics
-        self._filters = bank_tensors(self.model, self.device)[0]
+        # the bin edges travel as floats in self._statics; the banks are
+        # prepared for the pass once, here (phase-0 rows, bf16 rounding)
+        self._filters = pass_banks(self._statics,
+                                   bank_tensors(self.model, self.device)[0])
 
     # -- single-plane entry points (device tensors in/out) -------------------
 

@@ -3,7 +3,8 @@
 `nvcc` compiles every `raisr_tpu_torch/csrc/*.cu` for Hopper (sm_90a) into one
 shared library with a plain C interface, `build/torch_kernels/libraisr_kernels.so`
 at the root of the checkout. No PyTorch headers are included, so a build takes
-seconds. The library is rebuilt when the hash of the sources and flags changes.
+seconds. The library is rebuilt when the hash of the sources, the headers they
+share (`csrc/*.cuh`) and the flags changes.
 `--fmad=false` keeps every multiply and add rounded on its own, as the plain
 PyTorch versions round them.
 
@@ -57,7 +58,7 @@ def _sources() -> list[pathlib.Path]:
 
 def _digest(srcs: list[pathlib.Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(SOURCES_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()
@@ -103,10 +104,13 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raisr_full_hash_filter
-    fn.argtypes = [vp, vp, vp, i, i, i, vp, f, vp, i, vp, i, i, i, i, f, i, vp]
+    fn.argtypes = [vp, vp, i, vp, i, i, i, vp, f, vp, i, vp, i, i, i, i, f, i, vp]
     fn.restype = i
     fn = lib.raisr_full_epilogue
     fn.argtypes = [vp, vp, vp, i, i, f, f, i, i, i, i, i, i, i, vp]
+    fn.restype = i
+    fn = lib.raisr_filter_apply
+    fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
     fn.restype = i
     _LIB = lib
     return lib

@@ -1,0 +1,255 @@
+"""Filter apply (to precomputed buckets, and with the hash): the CUDA kernels'
+wrappers and their plain PyTorch versions. The output is the raw filtered
+plane, with no pass epilogue.
+
+Port of raisr_tpu/ops/pallas/filter_kernel.py:
+  - apply_filters_pallas (_band_kernel, 4 phases; _single_kernel, 1 phase)
+    -> `apply_filters`, csrc/filter_kernel.cu filter_apply_kernel<4> / <1>;
+  - apply_filters_hash_pallas (_band_kernel_fused, hash + filter, 4 phases)
+    -> `apply_filters_hash`, launch A of csrc/full_kernel.cu
+    (hash_filter_kernel<4>), which the fused pass runs too.
+The TPU knobs (tb2, rowbatch, mxu_passes, interpret) have no meaning here and
+are gone: the card computes plain float32 at every bit depth, so the 10-bit
+case (mxu_passes=3 on the TPU) needs nothing extra.
+
+Each wrapper runs its kernel on a CUDA tensor and its plain version on a CPU
+tensor; there is no fallback. `LAUNCHES`, `SINGLE_LAUNCHES` and `HASH_LAUNCHES`
+count the calls that went through a kernel: apply_filters with 4 and with 1
+phase, and apply_filters_hash.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from raisr_tpu_torch.ops import hashing
+from raisr_tpu_torch.ops.filter_apply import apply_filters_taps
+
+LAUNCHES = 0  # apply_filters, 4 phases, through filter_apply_kernel<4>
+SINGLE_LAUNCHES = 0  # apply_filters, 1 phase, through filter_apply_kernel<1>
+HASH_LAUNCHES = 0  # apply_filters_hash, through launch A
+
+FILTER_STRIDE = 128  # taps per bank row, zero-padded
+MAX_EDGES = 8
+
+
+def _check_phases(pixel_types: int, ratio: int | None = None) -> None:
+    """4 or 1 phases; given the filter apply's ratio, 4 phases only at ratio 2."""
+    if pixel_types not in (4, 1):
+        raise ValueError(f"the CUDA kernel takes 4 or 1 pixel types, got {pixel_types}")
+    if ratio is not None and pixel_types == 4 and ratio != 2:
+        raise ValueError(
+            f"4 pixel types need ratio 2, got {ratio} (raisr_tpu asserts it, "
+            "ops/pallas/filter_kernel.py:252)"
+        )
+
+
+def hash_buckets_reference(
+    cheap: torch.Tensor, *, k1d, nf: float, qstr, qcoh,
+    qangle: int = 24, qstrength: int = 3, qcoherence: int = 3,
+) -> torch.Tensor:
+    """Plain PyTorch version of the hash of launch A: gradients -> separable
+    structure tensor -> int32 hash buckets [H, W]."""
+    gx, gy = hashing.gradients(cheap)
+    a, b, d = hashing.structure_tensor_separable(gx, gy, k1d, nf)
+    return hashing.hash_buckets(a, b, d, qstr, qcoh, qangle, qstrength, qcoherence)
+
+
+def apply_filters_reference(
+    cheap: torch.Tensor,  # [H, W] f32
+    buckets: torch.Tensor,  # [H, W] int32
+    filters: torch.Tensor,  # [n_buckets * pixel_types, 128] f32 (or bf16)
+    *,
+    patch_size: int = 11,
+    pixel_types: int = 4,
+    patch_margin: int = 5,
+    ratio: int = 2,
+) -> torch.Tensor:
+    """Plain PyTorch version of apply_filters, on any device. A bucket
+    outside [0, n_buckets) gives 0; a bfloat16 bank is widened to float32
+    (exact) first."""
+    _check_phases(pixel_types, ratio)
+    h, w = cheap.shape
+    valid = (buckets >= 0) & (buckets < filters.shape[0] // pixel_types)
+    rows = torch.where(valid, buckets, 0)
+    if pixel_types == 4:
+        rows = rows * 4 + hashing.pixel_types(h, w, 2, patch_margin, True,
+                                              device=cheap.device)
+    raw = apply_filters_taps(cheap, rows, filters.to(torch.float32), patch_size)
+    return torch.where(valid, raw, 0.0)
+
+
+def apply_filters_hash_reference(
+    cheap: torch.Tensor, filters: torch.Tensor, *, k1d, nf: float, qstr, qcoh,
+    qangle: int = 24, qstrength: int = 3, qcoherence: int = 3,
+    patch_size: int = 11, patch_margin: int = 5,
+) -> torch.Tensor:
+    """Plain PyTorch version of apply_filters_hash: the plain hash, then the
+    plain 4-phase apply_filters."""
+    buckets = hash_buckets_reference(
+        cheap, k1d=k1d, nf=nf, qstr=qstr, qcoh=qcoh, qangle=qangle,
+        qstrength=qstrength, qcoherence=qcoherence)
+    return apply_filters_reference(cheap, buckets, filters, patch_size=patch_size,
+                                   pixel_types=4, patch_margin=patch_margin)
+
+
+# -- checks and launches shared with the fused pass (ops/cuda/full_kernel.py) --
+
+
+def _check_plane(cheap: torch.Tensor) -> None:
+    if cheap.dim() != 2 or cheap.dtype != torch.float32 or not cheap.is_contiguous():
+        raise ValueError(
+            f"cheap must be a contiguous 2-D float32 tensor, got "
+            f"{cheap.dtype} {tuple(cheap.shape)}"
+        )
+
+
+def _check_bank(filters: torch.Tensor, device: torch.device, n_rows: int,
+                dtypes=(torch.float32,)) -> None:
+    if (
+        filters.device != device
+        or filters.dtype not in dtypes
+        or not filters.is_contiguous()
+        or tuple(filters.shape) != (n_rows, FILTER_STRIDE)
+        or filters.data_ptr() % 16
+    ):
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(
+            f"filters must be a contiguous, 16-byte aligned {names} "
+            f"[{n_rows}, {FILTER_STRIDE}] tensor on {device}, got "
+            f"{filters.dtype} {tuple(filters.shape)} on {filters.device}"
+        )
+
+
+def _check_hash_args(k1d, qstr, qcoh, qstrength, qcoherence, patch_size) -> None:
+    if patch_size != 11 or len(k1d) != 11:
+        raise ValueError(f"the CUDA kernel takes patch_size 11, got {patch_size}")
+    if len(qstr) != qstrength - 1 or len(qcoh) != qcoherence - 1:
+        raise ValueError("qstr/qcoh must hold qstrength-1 / qcoherence-1 edges")
+    if len(qstr) > MAX_EDGES or len(qcoh) > MAX_EDGES:
+        raise ValueError(f"at most {MAX_EDGES} strength/coherence edges")
+
+
+def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
+    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _floats(values) -> ctypes.Array:
+    return (ctypes.c_float * max(len(values), 1))(*(float(v) for v in values))
+
+
+def _launch_hash_filter(cheap, filters, raw, pixel_types, *, k1d, nf, qstr, qcoh,
+                        qangle, qstrength, qcoherence) -> None:
+    """Launch A (hash + gather-dot) on the current stream; raises if the
+    launch fails. The arguments are checked by the caller."""
+    from raisr_tpu_torch.ops.cuda._build import load_library
+
+    h, w = cheap.shape
+    dev, stream = _device_and_stream(cheap)
+    k1d_c, qstr_c, qcoh_c = _floats(k1d), _floats(qstr), _floats(qcoh)
+    err = load_library().raisr_full_hash_filter(
+        cheap.data_ptr(), filters.data_ptr(), int(filters.dtype == torch.bfloat16),
+        raw.data_ptr(), h, w, pixel_types,
+        ctypes.addressof(k1d_c), float(nf),
+        ctypes.addressof(qstr_c), len(qstr), ctypes.addressof(qcoh_c), len(qcoh),
+        qangle, qstrength, qcoherence, float(qangle / hashing.PI), dev, stream,
+    )
+    if err:
+        raise RuntimeError(f"raisr_full_hash_filter launch failed: cudaError {err}")
+
+
+# -- the wrappers -----------------------------------------------------------
+
+
+def apply_filters(
+    cheap: torch.Tensor,  # [H, W] f32
+    buckets: torch.Tensor,  # [H, W] int32
+    filters: torch.Tensor,  # [216 * pixel_types, 128] f32
+    *,
+    patch_size: int = 11,
+    pixel_types: int = 4,  # 4: ratio-2 bank, row bucket*4 + phase; 1: row bucket
+    patch_margin: int = 5,
+    ratio: int = 2,
+) -> torch.Tensor:
+    """Raw filtered plane: bank[row] . patch per pixel, 0 where the bucket is
+    outside [0, n_buckets). The CUDA kernel for a CUDA tensor,
+    apply_filters_reference for a CPU tensor."""
+    kw = dict(patch_size=patch_size, pixel_types=pixel_types,
+              patch_margin=patch_margin, ratio=ratio)
+    if cheap.device.type == "cpu":
+        return apply_filters_reference(cheap, buckets, filters, **kw)
+    if cheap.device.type != "cuda":
+        raise ValueError(f"apply_filters runs on cpu or cuda, not {cheap.device}")
+    _check_phases(pixel_types, ratio)
+    _check_plane(cheap)
+    if (buckets.dtype != torch.int32 or buckets.shape != cheap.shape
+            or buckets.device != cheap.device or not buckets.is_contiguous()):
+        raise ValueError(
+            f"buckets must be a contiguous int32 {tuple(cheap.shape)} tensor on "
+            f"{cheap.device}, got {buckets.dtype} {tuple(buckets.shape)} on "
+            f"{buckets.device}"
+        )
+    if patch_size != 11 or patch_margin != 5:
+        raise ValueError(
+            f"the CUDA kernel takes patch_size 11 and patch_margin 5, got "
+            f"{patch_size} and {patch_margin}"
+        )
+    n_buckets = filters.shape[0] // pixel_types
+    _check_bank(filters, cheap.device, n_buckets * pixel_types)
+
+    from raisr_tpu_torch.ops.cuda._build import load_library
+
+    h, w = cheap.shape
+    raw = torch.empty_like(cheap)
+    dev, stream = _device_and_stream(cheap)
+    err = load_library().raisr_filter_apply(
+        cheap.data_ptr(), buckets.data_ptr(), filters.data_ptr(), raw.data_ptr(),
+        h, w, pixel_types, n_buckets, dev, stream,
+    )
+    if err:
+        raise RuntimeError(f"raisr_filter_apply launch failed: cudaError {err}")
+    global LAUNCHES, SINGLE_LAUNCHES
+    if pixel_types == 1:
+        SINGLE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return raw
+
+
+def apply_filters_hash(
+    cheap: torch.Tensor,  # [H, W] f32 (integer-valued)
+    filters: torch.Tensor,  # [864, 128] f32
+    *,
+    k1d,
+    nf: float,
+    qstr,
+    qcoh,
+    qangle: int = 24,
+    qstrength: int = 3,
+    qcoherence: int = 3,
+    patch_size: int = 11,
+    patch_margin: int = 5,
+) -> torch.Tensor:
+    """Hash + filter apply (ratio 2, 4 phases): cheap plane in, raw filtered
+    plane out. Launch A for a CUDA tensor, apply_filters_hash_reference for a
+    CPU tensor."""
+    kw = dict(k1d=k1d, nf=nf, qstr=qstr, qcoh=qcoh, qangle=qangle,
+              qstrength=qstrength, qcoherence=qcoherence)
+    if cheap.device.type == "cpu":
+        return apply_filters_hash_reference(
+            cheap, filters, patch_size=patch_size, patch_margin=patch_margin, **kw)
+    if cheap.device.type != "cuda":
+        raise ValueError(f"apply_filters_hash runs on cpu or cuda, not {cheap.device}")
+    _check_plane(cheap)
+    _check_bank(filters, cheap.device, qangle * qstrength * qcoherence * 4)
+    _check_hash_args(k1d, qstr, qcoh, qstrength, qcoherence, patch_size)
+    if patch_margin != 5:
+        raise ValueError(f"the CUDA kernel takes patch_margin 5, got {patch_margin}")
+    raw = torch.empty_like(cheap)
+    _launch_hash_filter(cheap, filters, raw, 4, **kw)
+    global HASH_LAUNCHES
+    HASH_LAUNCHES += 1
+    return raw

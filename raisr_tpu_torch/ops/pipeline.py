@@ -7,9 +7,12 @@ live in ops/epilogue.py, which the fused kernel's wrapper shares.
 
 Backends: "pallas" runs the fused pass (ops/cuda/full_kernel.py: the CUDA
 kernel on a CUDA tensor, its plain version on a CPU tensor) for ratio-2
-(4-phase) and single-phase (1.5x) banks; "taps" is the unfused reference
-formulation in plain PyTorch on any device. Where raisr_tpu uses `vmap`, this
-module loops over the frames.
+(4-phase) and single-phase (1.5x) banks, at the float32 tier and the 8-bit
+bfloat16 tier; "taps" is the unfused reference formulation in plain PyTorch on
+any device. A 4-phase bank at a ratio in (2, 3), e.g. 2.5x, uses phase 0 for
+every pixel, as the reference and the taps path do, so the fused backend runs
+it as a single-phase pass over the bank's phase-0 rows (see `pass_banks`).
+Where raisr_tpu uses `vmap`, this module loops over the frames.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from raisr_tpu_torch.model.gaussian import (
 )
 from raisr_tpu_torch.model.loader import RaisrModel
 from raisr_tpu_torch.ops import hashing
-from raisr_tpu_torch.ops.cuda.full_kernel import raisr_pass_full
+from raisr_tpu_torch.ops.cuda.full_kernel import raisr_pass_full, round_bf16_error_diffused
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
 from raisr_tpu_torch.ops.filter_apply import apply_filters_taps
 from raisr_tpu_torch.ops.resize import cheap_upscale, cheap_upscale_stacked
@@ -49,6 +52,10 @@ class PassStatics:
     blending: int
     exact_edges: bool
     backend: str  # "taps" | "pallas"
+    # the fused pass's tier: "float32", or "bfloat16" (8 bits: the bank
+    # rounded to bf16 with error diffusion, raisr_tpu's mxu_passes=1); the
+    # taps backend runs float32
+    tier: str = "float32"
     # per-pass (qstr, qcoh) bin edges as python floats (the bank's float32
     # values): the fused kernel's launch arguments and the taps hash's edges
     bank_edges: tuple = ()
@@ -85,7 +92,8 @@ def raisr_pass(
 
     if s.backend == "pallas":
         # whole pass in one fused call: 4-phase for ratio-2 banks, else the
-        # single-phase form (pass_statics refuses any other bank)
+        # single-phase form over a single-phase bank or the phase-0 rows of a
+        # 4-phase one (pass_banks; pass_statics refuses any other bank)
         return raisr_pass_full(
             cheap,
             filters,
@@ -127,28 +135,40 @@ def raisr_pass(
     )
 
 
-_LATER_TIERS = {
-    "bfloat16": "the bf16 tier is ROADMAP B2 (B4 at 10/16-bit)",
-    "bfloat16_exact": "the bf16 exact-patch tier is ROADMAP B2/B4",
-    "int8": "the int8-pair tier is ROADMAP B3",
-}
+def _fused_tier(cfg: RaisrConfig) -> str:
+    """The fused pass's tier for cfg.dtype ("auto" is already "bfloat16"):
+    raisr_tpu's pass_statics at 8 bits runs bfloat16 and bfloat16_exact
+    alike, as one bf16 slot with no p_split (mxu_passes=1)."""
+    if cfg.dtype == "int8":
+        raise RaisrError(
+            "dtype int8 is not ported to the CUDA kernel yet: the int8-pair "
+            "tier is ROADMAP B3."
+        )
+    if cfg.dtype in ("bfloat16", "bfloat16_exact"):
+        if cfg.bits != 8:
+            raise RaisrError(
+                f"dtype {cfg.dtype} at {cfg.bits} bits (pcenter / p_split) is not "
+                "ported to the CUDA kernel yet: it is ROADMAP B4."
+            )
+        return "bfloat16"
+    return "float32"
 
 
 def pass_statics(cfg: RaisrConfig, model: RaisrModel, backend: str) -> PassStatics:
-    """Static pass parameters. The fused backend runs the float32 tier only,
-    for ratio-2 (4-phase) and single-phase banks; the taps backend ignores the
-    tier, as in raisr_tpu."""
-    if backend == "pallas" and cfg.dtype in _LATER_TIERS:
-        raise RaisrError(
-            f"dtype {cfg.dtype} is not ported to the CUDA kernel yet: "
-            f"{_LATER_TIERS[cfg.dtype]}."
-        )
+    """Static pass parameters. The fused backend runs the float32 tier and,
+    at 8 bits, the bfloat16 tier, for ratio-2 (4-phase) and single-phase
+    banks, and a 4-phase bank at a ratio in (2, 3) with phase 0 everywhere;
+    the taps backend ignores the tier, as in raisr_tpu."""
+    tier = _fused_tier(cfg) if backend == "pallas" else "float32"
     pixel_types = model.banks[0].pixel_types
-    if backend == "pallas" and not cfg.use_pixel_type and pixel_types != 1:
-        # raisr_tpu sends these banks to its unfused Pallas filter kernels
+    if (backend == "pallas" and not cfg.use_pixel_type and pixel_types != 1
+            and not (pixel_types == 4 and int(cfg.ratio) == 2)):
+        # raisr_tpu sends these banks to its unfused Pallas filter kernel,
+        # which asserts 4 pixel types and ratio 2
         raise RaisrError(
-            f"ratio {cfg.ratio} with a bank of {pixel_types} pixel types needs "
-            "the unfused filter kernels, which are ROADMAP B6; use "
+            f"ratio {cfg.ratio} with a bank of {pixel_types} pixel types has no "
+            "fused form: raisr_tpu's unfused filter kernel asserts pixel_types "
+            "== 4 and ratio == 2 (ops/pallas/filter_kernel.py:252); use "
             "backend=reference."
         )
     bank_edges = tuple(
@@ -169,9 +189,31 @@ def pass_statics(cfg: RaisrConfig, model: RaisrModel, backend: str) -> PassStati
         blending=int(cfg.blending),
         exact_edges=cfg.exact_edges,
         backend=backend,
+        tier=tier,
         bank_edges=bank_edges,
         resize_mode=cfg.resize_mode,
     )
+
+
+def pass_banks(statics: PassStatics, filters) -> tuple[torch.Tensor, ...]:
+    """The banks the passes read, prepared once (the engine calls this at
+    construction, never per pass). For the fused backend:
+      - a 4-phase bank at a ratio other than 2 keeps its phase-0 rows
+        (filters[0::4], contiguous): the reference's pixelType is 0 there
+        (Raisr.cpp:1477-1480), as in the taps path's row bucket * 4 + 0;
+      - the bfloat16 tier rounds each bank with round_bf16_error_diffused.
+    The taps backend reads the banks as they are."""
+    s = statics
+    if s.backend != "pallas":
+        return tuple(filters)
+    out = []
+    for f in filters:
+        if not s.use_pixel_type and s.pixel_types == 4:
+            f = f[0::4].contiguous()
+        if s.tier == "bfloat16":
+            f = round_bf16_error_diffused(f)
+        out.append(f)
+    return tuple(out)
 
 
 def process_plane_y(

@@ -1,5 +1,7 @@
-"""The port's CUDA kernel on the card: held against its plain PyTorch
-version, inside the engine's batched step, and under CUDA-graph capture.
+"""The port's CUDA kernels on the card: held against their plain PyTorch
+versions, inside the engine's batched step, and under CUDA-graph capture:
+the fused pass (float32 and 8-bit bf16 tiers, 4 and 1 phases), the filter
+apply (apply_filters, 4 and 1 phases) and launch A alone (apply_filters_hash).
 
 Every test here needs a CUDA card and skips without one. This file imports
 no jax, so it also runs where jax is absent; tests/conftest.py imports jax,
@@ -15,12 +17,14 @@ import torch
 from raisr_tpu_torch import RaisrConfig, RaisrEngine
 from raisr_tpu_torch.model.gaussian import gaussian_kernel_1d, normalization_factor
 from raisr_tpu_torch.model.loader import FilterBank, RaisrModel
+from raisr_tpu_torch.ops.cuda import filter_kernel as flk
 from raisr_tpu_torch.ops.cuda import full_kernel as fk
+from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
 from torch_port_util import QCOH, QSTR, make_filters, require_cuda, smooth
 
 pytestmark = pytest.mark.cuda
 
-# The kernel rounds every step as the plain version does (nvcc --fmad=false,
+# The kernels round every step as the plain versions do (nvcc --fmad=false,
 # the same order of operations), so the two must agree bit for bit.
 
 
@@ -73,6 +77,21 @@ def test_kernel_stack_equals_per_frame():
         assert torch.equal(tall[i * period + pad: i * period + pad + h], single), i
 
 
+def _graph_step(eng, y, u):
+    """Warm up on a side stream, capture one step in a CUDA graph, replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eng.process_batch_device(y, u, u)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = eng.process_batch_device(y, u, u)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
 def test_device_step_and_graph_capture():
     dev = require_cuda()
     model = _model()
@@ -90,17 +109,7 @@ def test_device_step_and_graph_capture():
     cy, cu, _ = cpu.process_batch_device(y.cpu(), u.cpu(), u.cpu())
     assert torch.equal(oy.cpu(), cy), int((oy.cpu() != cy).sum())
     assert torch.equal(ou.cpu(), cu)
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        eng.process_batch_device(y, u, u)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        gy, gu, gv = eng.process_batch_device(y, u, u)
-    graph.replay()
-    torch.cuda.synchronize()
+    gy, gu, gv = _graph_step(eng, y, u)
     assert torch.equal(gy, oy) and torch.equal(gu, ou) and torch.equal(gv, ov)
 
 
@@ -159,15 +168,127 @@ def test_15x_device_step_and_graph_capture(passes, mode):
     cy, cu, _ = cpu.process_batch_device(y.cpu(), u.cpu(), u.cpu())
     assert torch.equal(oy.cpu(), cy), int((oy.cpu() != cy).sum())
     assert torch.equal(ou.cpu(), cu)
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        eng.process_batch_device(y, u, u)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        gy, gu, gv = eng.process_batch_device(y, u, u)
-    graph.replay()
-    torch.cuda.synchronize()
+    gy, gu, gv = _graph_step(eng, y, u)
     assert torch.equal(gy, oy) and torch.equal(gu, ou) and torch.equal(gv, ov)
+
+
+# -- the filter apply (apply_filters) and launch A alone (apply_filters_hash) -
+
+
+@pytest.mark.parametrize("pixel_types", [4, 1])
+@pytest.mark.parametrize("h,w", [(270, 481), (37, 64), (16, 16), (40, 9400)])
+def test_apply_filters_matches_plain_version(pixel_types, h, w):
+    """Real buckets and out-of-range ones (uniform over [-8, 232): raw 0)."""
+    dev = require_cuda()
+    rng = np.random.default_rng(h + w + pixel_types)
+    img = torch.tensor(smooth(h, w, seed=h + w), device=dev)
+    f = torch.tensor(make_filters(rng, pixel_types), device=dev)
+    kw = dict(pixel_types=pixel_types, ratio=2 if pixel_types == 4 else 1)
+    for lo, hi in ((0, 216), (-8, 232)):
+        b = torch.tensor(rng.integers(lo, hi, (h, w)).astype(np.int32), device=dev)
+        before = (flk.LAUNCHES, flk.SINGLE_LAUNCHES)
+        got = flk.apply_filters(img, b, f, **kw)
+        want = flk.apply_filters_reference(img, b, f, **kw)
+        torch.cuda.synchronize()
+        four = pixel_types == 4
+        assert (flk.LAUNCHES, flk.SINGLE_LAUNCHES) == (before[0] + four, before[1] + (not four))
+        assert torch.isfinite(got).all()
+        bad = (b < 0) | (b >= 216)
+        assert (got[bad] == 0).all()
+        diff = (got - want).abs()
+        assert torch.equal(got, want), (lo, int((diff > 0).sum()), float(diff.max()))
+
+
+@pytest.mark.parametrize("h,w", [(270, 481), (37, 64), (16, 16), (40, 9400)])
+def test_apply_filters_hash_and_staged_pass(h, w):
+    """apply_filters_hash against its plain version; it equals apply_filters
+    on the plain hash's buckets, and the epilogue over either equals the
+    fused pass, bit for bit."""
+    dev = require_cuda()
+    img = torch.tensor(smooth(h, w, seed=h + w + 2), device=dev)
+    f = torch.tensor(make_filters(np.random.default_rng(8)), device=dev)
+    kw = _kw(2)
+    hkw = {k: kw[k] for k in ("k1d", "nf", "qstr", "qcoh")}
+    before = flk.HASH_LAUNCHES
+    raw = flk.apply_filters_hash(img, f, **hkw)
+    want = flk.apply_filters_hash_reference(img, f, **hkw)
+    torch.cuda.synchronize()
+    assert flk.HASH_LAUNCHES == before + 1
+    assert torch.equal(raw, want), int(((raw - want).abs() > 0).sum())
+    staged = flk.apply_filters(img, flk.hash_buckets_reference(img, **hkw), f)
+    assert torch.equal(staged, raw)
+    out = _finish_pass(img, staged, min_val=16, max_val=235, blending=2, loop_margin=6,
+                       col_end=processed_col_end(w, 6, True))
+    assert torch.equal(out, fk.raisr_pass_full(img, f, **kw))
+
+
+# -- the 8-bit bf16 tier ------------------------------------------------------
+
+
+@pytest.mark.parametrize("blending", [1, 2])
+@pytest.mark.parametrize("pixel_types", [4, 1])
+@pytest.mark.parametrize("h,w", [(270, 481), (37, 64), (16, 16), (40, 9400)])
+def test_bf16_kernel_matches_plain_version(pixel_types, blending, h, w):
+    dev = require_cuda()
+    img = torch.tensor(smooth(h, w, seed=h + w + 3), device=dev)
+    f = fk.round_bf16_error_diffused(
+        torch.tensor(make_filters(np.random.default_rng(9), pixel_types), device=dev))
+    assert f.dtype == torch.bfloat16
+    count = "BF16_LAUNCHES" if pixel_types == 4 else "SINGLE_BF16_LAUNCHES"
+    before = getattr(fk, count)
+    got = fk.raisr_pass_full(img, f, pixel_types=pixel_types, **_kw(blending))
+    want = fk.raisr_pass_full_reference(img, f, pixel_types=pixel_types, **_kw(blending))
+    torch.cuda.synchronize()
+    assert getattr(fk, count) == before + 1
+    diff = (got - want).abs()
+    assert torch.equal(got, want), (int((diff > 0).sum()), float(diff.max()))
+
+
+@pytest.mark.parametrize("ratio,passes,pixel_types", [(2.0, 2, 4), (1.5, 1, 1)])
+def test_bf16_device_step_and_graph_capture(ratio, passes, pixel_types):
+    """dtype="auto" through process_batch_device: the bf16 kernel, one launch
+    per pass for the stack, equal to the plain bf16 passes (the CPU engine),
+    eagerly and as a replayed CUDA graph."""
+    dev = require_cuda()
+    model = _model(passes=passes, seed=10, pixel_types=pixel_types)
+    rng = np.random.default_rng(11)
+    y = torch.tensor(rng.integers(16, 235, (2, 48, 64)), dtype=torch.uint8, device=dev)
+    u = torch.tensor(rng.integers(16, 240, (2, 24, 32)), dtype=torch.uint8, device=dev)
+    cfg = dict(ratio=ratio, passes=passes, dtype="auto")
+    eng = RaisrEngine(RaisrConfig(**cfg), model, device=dev)
+    fk.LAUNCHES = fk.SINGLE_LAUNCHES = fk.BF16_LAUNCHES = fk.SINGLE_BF16_LAUNCHES = 0
+    oy, ou, ov = eng.process_batch_device(y, u, u)
+    torch.cuda.synchronize()
+    want = (passes, 0) if pixel_types == 4 else (0, passes)
+    assert (fk.BF16_LAUNCHES, fk.SINGLE_BF16_LAUNCHES) == want
+    assert fk.LAUNCHES == fk.SINGLE_LAUNCHES == 0
+    cpu = RaisrEngine(RaisrConfig(backend="pallas", **cfg), model, device="cpu")
+    cy, cu, _ = cpu.process_batch_device(y.cpu(), u.cpu(), u.cpu())
+    assert torch.equal(oy.cpu(), cy), int((oy.cpu() != cy).sum())
+    assert torch.equal(ou.cpu(), cu)
+    gy, gu, gv = _graph_step(eng, y, u)
+    assert torch.equal(gy, oy) and torch.equal(gu, ou) and torch.equal(gv, ov)
+
+
+# -- a 4-phase bank at 2.5x (ROADMAP C9) --------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "auto"])
+def test_25x_route(dtype):
+    """2.5x with a 2x bank: the single-phase kernel over the bank's phase-0
+    rows, once per frame and pass (the frames are not stacked), equal to the
+    plain version (the CPU engine)."""
+    dev = require_cuda()
+    model = _model(passes=1, seed=12)
+    y = torch.tensor(np.random.default_rng(13).integers(16, 235, (2, 40, 56)),
+                     dtype=torch.uint8, device=dev)
+    cfg = dict(ratio=2.5, passes=1, dtype=dtype)
+    eng = RaisrEngine(RaisrConfig(**cfg), model, device=dev)
+    fk.LAUNCHES = fk.SINGLE_LAUNCHES = fk.BF16_LAUNCHES = fk.SINGLE_BF16_LAUNCHES = 0
+    oy = eng.process_batch_device(y)[0]
+    torch.cuda.synchronize()
+    single = fk.SINGLE_LAUNCHES if dtype == "float32" else fk.SINGLE_BF16_LAUNCHES
+    assert single == 2 and fk.LAUNCHES == fk.BF16_LAUNCHES == 0
+    assert tuple(oy.shape) == (2, 100, 140)
+    cpu = RaisrEngine(RaisrConfig(backend="pallas", **cfg), model, device="cpu")
+    assert torch.equal(oy.cpu(), cpu.process_batch_device(y.cpu())[0])

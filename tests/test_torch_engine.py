@@ -121,8 +121,16 @@ def test_backend_resolution_and_refusals(models):
         RaisrEngine(RaisrConfig(backend="xla"), tm, device="cpu")
     with pytest.raises(RaisrError, match="multi-device"):
         RaisrEngine(RaisrConfig(), tm, shard="data=2", device="cpu")
-    with pytest.raises(RaisrError, match="ROADMAP B2"):
-        RaisrEngine(RaisrConfig(backend="pallas", dtype="bfloat16"), tm, device="cpu")
+    # the bf16 tier is served at 8 bits (auto resolves to it); 10-bit bf16
+    # (pcenter) is B4 and int8 is B3
+    eng16 = RaisrEngine(RaisrConfig(backend="pallas", dtype="auto"), tm, device="cpu")
+    assert eng16._statics.tier == "bfloat16"
+    assert all(f.dtype == torch.bfloat16 for f in eng16._filters)
+    with pytest.raises(RaisrError, match="ROADMAP B4"):
+        RaisrEngine(RaisrConfig(backend="pallas", dtype="bfloat16", bits=10), tm,
+                    device="cpu")
+    with pytest.raises(RaisrError, match="ROADMAP B3"):
+        RaisrEngine(RaisrConfig(backend="pallas", dtype="int8"), tm, device="cpu")
     # ratio 1.5 with a single-phase bank is served by the fused backend
     m15 = from_jax_model(make_jax_model(passes=1, seed=2, pixel_types=1))
     eng15 = RaisrEngine(RaisrConfig(ratio=1.5, backend="pallas"), m15, device="cpu")

@@ -27,6 +27,7 @@ from raisr_tpu_torch.ops import census as tcensus, hashing as thash
 from raisr_tpu_torch.ops.filter_apply import apply_filters_taps as t_taps
 from raisr_tpu_torch.ops.pipeline import (
     _finish_pass as t_finish,
+    pass_banks as t_banks,
     pass_statics as t_statics,
     processed_col_end as t_col_end,
 )
@@ -202,6 +203,10 @@ def test_finish_pass_bit_identical(blending):
 
 
 def test_pass_statics_tiers():
+    """The fused backend serves float32 at every depth and the bf16 tiers
+    (auto resolves to bfloat16) at 8 bits, raisr_tpu's mxu_passes=1 without
+    p_split; bf16 at 10/16 bits names B4 and int8 names B3. The taps backend
+    ignores the tier, as in raisr_tpu."""
     jm = make_jax_model(passes=1)
     tm = from_jax_model(jm)
     s = t_statics(RaisrConfig(), tm, "pallas")
@@ -209,16 +214,25 @@ def test_pass_statics_tiers():
     assert s.bank_edges == js.bank_edges
     assert (s.min_val, s.max_val, s.blending, s.loop_margin) == (
         js.min_val, js.max_val, js.blending, js.loop_margin)
+    assert s.tier == "float32"
+    for dtype in ("bfloat16", "bfloat16_exact", "auto"):
+        s = t_statics(RaisrConfig(dtype=dtype), tm, "pallas")
+        js = j_statics(JConfig(dtype=dtype), jm, "pallas")
+        assert s.tier == "bfloat16" and (js.mxu_passes, js.p_split) == (1, False)
+        for bits in (10, 16):
+            with pytest.raises(RaisrError, match="ROADMAP B4"):
+                t_statics(RaisrConfig(dtype=dtype, bits=bits), tm, "pallas")
+    with pytest.raises(RaisrError, match="ROADMAP B3"):
+        t_statics(RaisrConfig(dtype="int8"), tm, "pallas")
     for dtype in ("bfloat16", "bfloat16_exact", "int8"):
-        with pytest.raises(RaisrError, match="ROADMAP B"):
-            t_statics(RaisrConfig(dtype=dtype), tm, "pallas")
-        # the taps backend ignores the tier, as in raisr_tpu
-        assert t_statics(RaisrConfig(dtype=dtype), tm, "taps").backend == "taps"
+        s = t_statics(RaisrConfig(dtype=dtype), tm, "taps")
+        assert s.backend == "taps" and s.tier == "float32"
 
 
 def test_pass_statics_single_phase():
     """A 1.5x config with a single-phase bank: the fused backend takes it at
-    the float32 tier, with raisr_tpu's statics; the bf16 tiers name B2/B4."""
+    the float32 tier, with raisr_tpu's statics, and at the 8-bit bf16 tier;
+    bf16 at 10 bits names B4."""
     jm = make_jax_model(passes=1, pixel_types=1)
     tm = from_jax_model(jm)
     s = t_statics(RaisrConfig(ratio=1.5), tm, "pallas")
@@ -227,8 +241,21 @@ def test_pass_statics_single_phase():
         js.pixel_types, js.use_pixel_type, js.ratio_int) == (1, False, 1)
     assert s.bank_edges == js.bank_edges
     for dtype in ("bfloat16", "bfloat16_exact"):
-        with pytest.raises(RaisrError, match="B2"):
-            t_statics(RaisrConfig(ratio=1.5, dtype=dtype), tm, "pallas")
-    # a 2x bank (4 pixel types) at ratio 1.5 has no fused form
-    with pytest.raises(RaisrError, match="ROADMAP B6"):
+        assert t_statics(RaisrConfig(ratio=1.5, dtype=dtype), tm, "pallas").tier == "bfloat16"
+        with pytest.raises(RaisrError, match="B4"):
+            t_statics(RaisrConfig(ratio=1.5, dtype=dtype, bits=10), tm, "pallas")
+    # a 2x bank (4 pixel types) at ratio 1.5 has no fused form: raisr_tpu's
+    # unfused filter kernel asserts ratio 2
+    with pytest.raises(RaisrError, match="asserts pixel_types == 4 and ratio == 2"):
         t_statics(RaisrConfig(ratio=1.5), from_jax_model(make_jax_model(1)), "pallas")
+    # at 2.5x it is served with phase 0 everywhere (ROADMAP C9): the fused
+    # backend reads the bank's phase-0 rows through the single-phase pass
+    m4 = from_jax_model(make_jax_model(1))
+    s25 = t_statics(RaisrConfig(ratio=2.5), m4, "pallas")
+    assert (s25.pixel_types, s25.use_pixel_type, s25.ratio_int) == (4, False, 2)
+    f = torch.from_numpy(m4.banks[0].filters)
+    (bank,) = t_banks(s25, (f,))
+    assert bank.shape == (216, 128) and bank.is_contiguous()
+    assert torch.equal(bank, f[0::4])
+    (bank16,) = t_banks(t_statics(RaisrConfig(ratio=2.5, dtype="auto"), m4, "pallas"), (f,))
+    assert bank16.dtype == torch.bfloat16 and bank16.shape == (216, 128)
