@@ -50,8 +50,24 @@ then the filter kernels, the bf16 tier and the 2.5x route:
  12. a 2x bank at 2.5x (one 1080p frame to 2700x4800, 1 pass): the
      single-phase kernel over the bank's phase-0 rows, against the plain pass
      and the taps engine.
+then the remaining tiers and the integer probe (run_tier: each tier's kernel
+against its plain version on one output-size plane and on the 4-frame stack,
+bit for bit; the path through process_batch_device, every frame against the
+plain passes, a replayed CUDA graph against eager, the tier's launch count;
+the difference to the float32 frames and the times printed):
+ 13. the int8 tier: phase 2's frames and bank, dtype="int8";
+ 14. the >8-bit tiers on uint16 frames, 4 x 1080p: 10-bit 2x 2-pass float32,
+     bfloat16 (pcenter) and bfloat16_exact (p_split); 16-bit 2x 1-pass
+     float32 and bfloat16 (p_split); 10-bit 1.5x 1-pass float32 and bfloat16
+     (the single-phase p_split);
+ 15. the s8 x s8 -> s32 matmul probe (tools/probe_s16.py) at [864, 144] x
+     [144, 512], against the int64 product and torch._int_mm, timed beside it.
 Each path is driven with the launch counts set to 0 just before it and read
-just after. Its last line is {"ok": true, "device": {...}}. It imports nothing of jax or
+just after. The `kernels` line gives every kernel form its bound (bound_ms,
+bound_by: the larger of its bytes over 3.35 TB/s and its dot's operations
+over the peak of their type) and library_ms, the time of one PyTorch call
+computing the same function where there is one (torch._int_mm for the
+probe). Its last line is {"ok": true, "device": {...}}. It imports nothing of jax or
 raisr_tpu, and exits non-zero, with no result line, when there is no CUDA
 card or any phase fails.
 """
@@ -75,6 +91,13 @@ QCOH = (0.192916, 0.405942)
 # --fmad=false), so they must agree bit for bit
 KERNEL_MAX_ABS_ERR = 0.0
 FUZZ_MAX_FRAC = 0.02  # fused vs taps engine, the JAX package's bar
+# the least time the card could take (the `kernels` line's bound_ms): an
+# H100 SXM's device memory rate and peak rates (NVIDIA's data sheet, dense,
+# at the full 700 W): float32 outside the tensor cores, bfloat16 and int8 in
+# them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+DOT_OPS = 2 * 121  # a pixel's 121-tap dot: one multiply and one add per tap
 
 
 def card_line() -> str:
@@ -85,12 +108,46 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def diff_stats(a, b) -> tuple[float, float, float]:
-    """(share of differing pixels, median and max absolute difference)."""
+def as_f64(t):
+    """A plane as float64: uint16 through the engine's unpacking (few CUDA
+    kernels take uint16), anything else by a cast."""
     import torch
 
-    d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+    from raisr_tpu_torch.engine import unpack_planes
+
+    return (unpack_planes(t) if t.dtype == torch.uint16 else t).to(torch.float64)
+
+
+def diff_stats(a, b) -> tuple[float, float, float]:
+    """(share of differing pixels, median and max absolute difference)."""
+    d = (as_f64(a) - as_f64(b)).abs()
     return (float((d > 0).double().mean()), float(d.median()), float(d.max()))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(in_bytes: int, out_bytes: int, ops: float, op_type: str) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes moved (each input read once, each output written once) over the
+    device memory's rate and the operations over the peak rate of their
+    type. Returns the `kernels` line's bound_ms and bound_by."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def pass_bound(plane, *inputs, op_type: str = "float32") -> dict:
+    """Bound of a kernel that reads `plane` and `inputs` (bank, buckets,
+    bias) and writes one float32 value per pixel, counting the dot's
+    operations alone: the hash's ~170 more per pixel are left out, so the
+    bound of a kernel with the hash is loose. A bank's dot is counted at the
+    rate of the bank's type: a bf16 bank's (the 8-bit bf16 tier, pcenter,
+    p_split) at the bfloat16 rate, the int8 tier's integer dot at the int8
+    rate."""
+    return bound(nbytes(plane, *inputs), plane.numel() * 4, plane.numel() * DOT_OPS, op_type)
 
 
 def hold(phase: str, label: str, got, want) -> float:
@@ -108,10 +165,10 @@ def hold(phase: str, label: str, got, want) -> float:
 
 
 def make_bank(folder: str, passes: int = PASSES, pixel_types: int = 4,
-              ratio: float = 2.0, seed: int = 0):
+              ratio: float = 2.0, seed: int = 0, bits: int = 8):
     """Write and reload a bank of the real shape (216 buckets x pixel_types
     phases x 121 taps; 4 phases for 2x, 1 for 1.5x): centre tap 1 plus noise
-    of 0.01, from `seed`."""
+    of 0.01, from `seed`, as the filter folder of `bits`."""
     import numpy as np
 
     from raisr_tpu_torch import RaisrConfig, load_model
@@ -130,16 +187,20 @@ def make_bank(folder: str, passes: int = PASSES, pixel_types: int = 4,
             qcoh=np.asarray(QCOH, np.float32), pixel_types=pixel_types,
             taps=121, source_dtype="fp32",
         ))
-    save_filter_folder(folder, banks, bits=8)
-    return load_model(folder, RaisrConfig(passes=passes, ratio=ratio))
+    save_filter_folder(folder, banks, bits=bits)
+    return load_model(folder, RaisrConfig(passes=passes, ratio=ratio, bits=bits))
 
 
-def make_planes(n: int, h: int, w: int, seed: int, device):
-    """Smooth seeded uint8 content in [16, 235]: coarse and fine noise,
-    bilinearly enlarged on the card, so edges of every orientation occur."""
+def make_planes(n: int, h: int, w: int, seed: int, device, bits: int = 8):
+    """Smooth seeded content, packed as the engine takes it: uint8 in
+    [16, 235] at 8 bits, uint16 in [64, 940] at 10 and over the full range
+    at 16; coarse and fine noise, bilinearly enlarged on the card, so edges
+    of every orientation occur."""
     import numpy as np
     import torch
     import torch.nn.functional as F
+
+    from raisr_tpu_torch.engine import pack_planes
 
     rng = np.random.default_rng(seed)
     out = torch.zeros((n, 1, h, w), device=device)
@@ -151,7 +212,9 @@ def make_planes(n: int, h: int, w: int, seed: int, device):
         out += amp * F.interpolate(noise, size=(h, w), mode="bilinear",
                                    align_corners=False)
     out = (out - out.amin()) / (out.amax() - out.amin())
-    return torch.round(16 + out[:, 0] * 219).to(torch.uint8)
+    lo, hi = {8: (16, 235), 10: (64, 940), 16: (0, 65535)}[bits]
+    return pack_planes(torch.round(lo + out[:, 0] * (hi - lo)),
+                       torch.uint8 if bits == 8 else torch.uint16)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -351,16 +414,9 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
     if profile_dir:
         profile_steps(lambda: engine.process_batch_device(y, u, v), profile_dir, card,
                       phase=9, name="step15_trace.json")
-    row = {
-        "name": "full_kernel_single",
-        "route": "cuda",
-        "source": "raisr_tpu_torch/csrc/full_kernel.cu",
-        "replaces": "raisr_tpu/ops/pallas/full_kernel.py:952",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": ms_kernel,
-        "plain_ms": ms_plain,
-    }
+    row = kernel_row("full_kernel_single", "raisr_tpu_torch/csrc/full_kernel.cu",
+                     "raisr_tpu/ops/pallas/full_kernel.py:952", launches, errs,
+                     ms_kernel, ms_plain, pass_bound(cheap, filters))
     ctx = dict(model=model, filters=filters, kw=kw, cheap=cheap, stack=stack,
                skw=skw, oy=oy, ms_step=ms_step, ms_graph=ms_graph)
     return row, ctx
@@ -369,17 +425,18 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
 def psnr(a, b, peak: float = 255.0) -> float:
     import math
 
-    import torch
-
-    mse = float(((a.to(torch.float64) - b.to(torch.float64)) ** 2).mean())
+    mse = float(((as_f64(a) - as_f64(b)) ** 2).mean())
     return math.inf if mse == 0 else 10 * math.log10(peak * peak / mse)
 
 
 def kernel_row(name: str, source: str, replaces: str, launches: int, errs,
-               ms: float, plain_ms: float) -> dict:
+               ms: float, plain_ms: float, bnd: dict,
+               library_ms: float | None = None) -> dict:
+    """One entry of the `kernels` line; library_ms is the time of one
+    PyTorch call computing the same function, where there is one."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(errs), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, **bnd, "library_ms": library_ms}
 
 
 def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
@@ -498,12 +555,14 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
     src = "raisr_tpu_torch/csrc/filter_kernel.cu"
     return [
         kernel_row("filter_kernel", src, "raisr_tpu/ops/pallas/filter_kernel.py:116",
-                   counts[0], errs4, t["plane"]["apply"], t["plane"]["apply_plain"]),
+                   counts[0], errs4, t["plane"]["apply"], t["plane"]["apply_plain"],
+                   pass_bound(cheap, buckets, f)),
         kernel_row("filter_kernel_single", src, "raisr_tpu/ops/pallas/filter_kernel.py:374",
-                   counts[1], errs1, ms15, ms15_plain),
+                   counts[1], errs1, ms15, ms15_plain, pass_bound(cheap15, b15, f15)),
         kernel_row("hash_filter", "raisr_tpu_torch/csrc/full_kernel.cu",
                    "raisr_tpu/ops/pallas/filter_kernel.py:514", counts[2], errsh,
-                   t["plane"]["hash_apply"], t["plane"]["hash_apply_plain"]),
+                   t["plane"]["hash_apply"], t["plane"]["hash_apply_plain"],
+                   pass_bound(cheap, f)),
     ]
 
 
@@ -594,7 +653,7 @@ def run_bf16(y, u, v, dev, card: str, model, kw: dict, c2: dict, c15: dict,
             "full_kernel_single_bf16" if single else "full_kernel_bf16",
             "raisr_tpu_torch/csrc/full_kernel.cu",
             "raisr_tpu/ops/pallas/full_kernel.py:" + ("952" if single else "82"),
-            launches, errs, ms16, ms_plain))
+            launches, errs, ms16, ms_plain, pass_bound(plane, banks[0], op_type="bfloat16")))
     return rows
 
 
@@ -641,6 +700,216 @@ def run_25x(y, dev, card: str, kw: dict) -> None:
         raise SystemExit("phase 12 failed: Y against the taps engine")
     ms = cuda_ms(lambda: engine.process_batch_device(frame), 10, 2)
     print(f"phase 12 time on {card}: 2.5x step, 1 frame {out_h}x{out_w}, {ms:.3f} ms")
+
+
+def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None):
+    """Phases 13 and 14, one tier's path: the fused pass at the engine's tier
+    against its plain version, bit for bit, on one output-size plane (both
+    blendings) and on every launch of the path (each pass over the 4-frame
+    guard-banded stack); then the path, process_batch_device on the 4
+    frames, with every launch count set to 0 just before it: the tier's
+    count must be the pass count and every other 0; every served frame
+    against the plain passes and the stacked launches, U/V against the
+    chroma upscale, a replayed CUDA graph against eager; the difference to
+    `base` (the float32 frames of the same depth and ratio), printed; times
+    of the tier's kernel beside the float32 kernel on the same plane, its
+    plain version and the step. Returns the `kernels` row, the served Y
+    frames and the step time."""
+    import torch
+
+    from raisr_tpu_torch import RaisrEngine
+    from raisr_tpu_torch.engine import unpack_planes
+    from raisr_tpu_torch.model.gaussian import gaussian_kernel_1d, normalization_factor
+    from raisr_tpu_torch.ops import pipeline
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.resize import cheap_upscale, cheap_upscale_stacked
+
+    y, u, v = frames
+    engine = RaisrEngine(cfg, model, device=dev)
+    tier, bits, passes = engine._statics.tier, cfg.bits, cfg.passes
+    pt = 4 if cfg.use_pixel_type else 1
+    count_names = tuple(fk._COUNTS.values())
+    count = fk._COUNTS[(tier, pt)]
+    out_h, out_w = cfg.output_size(LR_H, LR_W)
+    f32 = [torch.tensor(b.filters, device=dev) for b in model.banks]
+    # each pass's bank at the tier, and its extras (pcenter bias, int8 1/scale)
+    banks = [(b.filters, dict(pbias=b.pbias, inv_scale=b.inv_scale))
+             for b in pipeline.pass_banks(engine._statics, f32)]
+    k1d = tuple(float(x) for x in gaussian_kernel_1d(11))
+
+    def pk(p, **kw):
+        b = model.banks[p]
+        return dict(k1d=k1d, nf=normalization_factor(bits),
+                    qstr=tuple(float(q) for q in b.qstr), qcoh=tuple(float(q) for q in b.qcoh),
+                    min_val=cfg.min_val, max_val=cfg.max_val, pixel_types=pt, **kw)
+
+    label = f"{phase} {tag} {tier} kernel"
+    errs = []
+    lr = unpack_planes(y)
+    plane = cheap_upscale(lr[0], out_h, out_w, bits)
+    bank0, extra0 = banks[0]
+    for blending in (1, 2):
+        kw = pk(0, blending=blending, **extra0)
+        errs.append(hold(label, f"blending {blending}, one {out_h}x{out_w} plane",
+                         fk.raisr_pass_full(plane, bank0, **kw),
+                         fk.raisr_pass_full_reference(plane, bank0, **kw)))
+    # the path's launches: the stack of all frames, LR guard 6 rows
+    lr_pad = 6
+    hr_pad = lr_pad * out_h // LR_H
+    stack_lr = pipeline.guard_band_stack(lr, lr_pad)
+    if out_h == 2 * LR_H:
+        x = cheap_upscale(stack_lr, 2 * stack_lr.shape[0], out_w, bits)
+    else:
+        x = cheap_upscale_stacked(stack_lr, N_FRAMES, LR_H, lr_pad, out_h, hr_pad, out_w, bits)
+    for p, (bank, extra) in enumerate(banks):
+        skw = pk(p, blending=2, frame_h=out_h, frame_pad=hr_pad, **extra)
+        got = fk.raisr_pass_full(x, bank, **skw)
+        errs.append(hold(label, f"pass {p + 1} over the {N_FRAMES}-frame stack "
+                         f"{tuple(x.shape)} (frame_h {out_h}, frame_pad {hr_pad})",
+                         got, fk.raisr_pass_full_reference(x, bank, **skw)))
+        x = got
+    stack_y = x.reshape(N_FRAMES, out_h + 2 * hr_pad, out_w)[:, hr_pad: hr_pad + out_h]
+
+    torch.cuda.synchronize()
+    for name in count_names:
+        setattr(fk, name, 0)
+    oy, ou, ov = engine.process_batch_device(y, u, v)
+    torch.cuda.synchronize()
+    counts = {name: getattr(fk, name) for name in count_names}
+    launches = counts[count]
+    print(f"phase {phase} {tag} path ({cfg.dtype}, {bits} bits, tier {tier}): Y "
+          f"{tuple(oy.shape)} {oy.dtype}, launches {counts}")
+    ch, cw = cfg.output_size(LR_H // 2, LR_W // 2)
+    out_dtype = torch.uint8 if bits == 8 else torch.uint16
+    if (tuple(oy.shape) != (N_FRAMES, out_h, out_w) or tuple(ou.shape) != (N_FRAMES, ch, cw)
+            or not oy.dtype == ou.dtype == ov.dtype == out_dtype
+            or launches != passes or sum(counts.values()) != launches):
+        raise SystemExit(f"phase {phase} failed: {tag} shapes, dtype or launch count")
+    oyf = unpack_planes(oy)
+    if not torch.equal(oyf, stack_y):
+        raise SystemExit(f"phase {phase} failed: {tag} Y differs from the stacked launches")
+    peak = float((1 << bits) - 1)
+    for i in range(N_FRAMES):
+        x = cheap_upscale(lr[i], out_h, out_w, bits)
+        for p, (bank, extra) in enumerate(banks):
+            x = fk.raisr_pass_full_reference(x, bank, **pk(p, blending=2, **extra))
+        frac, _, mx = diff_stats(oyf[i], x)
+        line = f"phase {phase} {tag} Y frame {i}: vs plain passes differing {frac:.6%}, max {mx}"
+        if base is not None:
+            b_frac, _, b_mx = diff_stats(oy[i], base[i])
+            line += (f"; vs the float32 frame differing {b_frac:.6%}, largest {b_mx:g} LSB, "
+                     f"PSNR {psnr(oy[i], base[i], peak):.2f} dB at peak {peak:g}")
+        print(line)
+        errs.append(mx)
+        if mx > KERNEL_MAX_ABS_ERR:
+            raise SystemExit(f"phase {phase} failed: {tag} Y frame {i} against the plain passes")
+    for name, got, src in (("U", ou, u), ("V", ov, v)):
+        if not torch.equal(unpack_planes(got), pipeline.process_plane_uv(
+                unpack_planes(src), ch, cw, bits)):
+            raise SystemExit(f"phase {phase} failed: {tag} {name} differs")
+    (gy, gu, gv), graph = graph_step(engine, y, u, v)
+    same = all(torch.equal(unpack_planes(a), unpack_planes(b))
+               for a, b in ((gy, oy), (gu, ou), (gv, ov)))
+    print(f"phase {phase} {tag} U/V equal process_plane_uv: yes; CUDA graph replay "
+          f"equals eager: {same}")
+    if not same:
+        raise SystemExit(f"phase {phase} failed: {tag} graph replay")
+
+    dkw, fkw = pk(0, blending=2, **extra0), pk(0, blending=2)
+    ms32 = cuda_ms(lambda: fk.raisr_pass_full(plane, f32[0], **fkw), 20, 3)
+    ms = cuda_ms(lambda: fk.raisr_pass_full(plane, bank0, **dkw), 20, 3)
+    ms_b = cuda_ms(lambda: fk.raisr_pass_full(plane, bank0, **dkw), 20, 3)
+    ms32_b = cuda_ms(lambda: fk.raisr_pass_full(plane, f32[0], **fkw), 20, 3)
+    ms_plain = cuda_ms(lambda: fk.raisr_pass_full_reference(plane, bank0, **dkw), 3)
+    ms_step = cuda_ms(lambda: engine.process_batch_device(y, u, v), 10, 2)
+    ms_graph = cuda_ms(graph.replay, 10, 2)
+    print(f"phase {phase} times on {card}, {tag}: fused pass {tuple(plane.shape)} f32 / "
+          f"{tier} / {tier} / f32 {ms32:.3f} / {ms:.3f} / {ms_b:.3f} / {ms32_b:.3f} ms, "
+          f"{tier} plain {ms_plain:.3f} ms; serving step {N_FRAMES} frames eager "
+          f"{ms_step:.3f} ms = {N_FRAMES * 1000 / ms_step:.2f} frames/s, graph "
+          f"{ms_graph:.3f} ms = {N_FRAMES * 1000 / ms_graph:.2f} frames/s")
+    form = {"float32": "f32", "pcenter": "pcenter", "int8": "int8"}.get(
+        tier, "bf16" if bits == 8 else "p_split")
+    row = kernel_row(
+        f"full_kernel{'_single' if pt == 1 else ''}_{form}_{bits}bit",
+        "raisr_tpu_torch/csrc/full_kernel.cu",
+        "raisr_tpu/ops/pallas/full_kernel.py:" + ("82" if pt == 4 else "952"),
+        launches, errs, ms, ms_plain,
+        pass_bound(plane, bank0, extra0.get("pbias"),
+                   op_type={"float32": "float32", "int8": "int8"}.get(tier, "bfloat16")))
+    return row, oy, ms_step
+
+
+def run_hibit(dev, card: str) -> list[dict]:
+    """Phase 14: the >8-bit tiers on uint16 frames, 4 x 1080p. At 10 bits,
+    2x, 2 passes: float32, bfloat16 (pcenter) and bfloat16_exact (p_split);
+    at 16 bits, 2x, 1 pass: float32 and bfloat16 (p_split); at 10 bits,
+    1080p -> 1620x2880, 1 pass: float32 and bfloat16 (the single-phase
+    p_split). Each float32 path comes first and gives the frames the bf16
+    tiers are compared with. Returns their `kernels` rows."""
+    from raisr_tpu_torch import RaisrConfig
+
+    rows = []
+    for bits, ratio, passes, dtypes in (
+        (10, 2.0, PASSES, ("float32", "bfloat16", "bfloat16_exact")),
+        (16, 2.0, 1, ("float32", "bfloat16")),
+        (10, 1.5, PASSES_15X, ("float32", "bfloat16")),
+    ):
+        pt = 4 if ratio == 2.0 else 1
+        with tempfile.TemporaryDirectory() as folder:
+            model = make_bank(folder, passes=passes, pixel_types=pt, ratio=ratio,
+                              seed=14, bits=bits)
+        frames = (make_planes(N_FRAMES, LR_H, LR_W, 41, dev, bits),
+                  make_planes(N_FRAMES, LR_H // 2, LR_W // 2, 42, dev, bits),
+                  make_planes(N_FRAMES, LR_H // 2, LR_W // 2, 43, dev, bits))
+        base = None
+        for dtype in dtypes:
+            cfg = RaisrConfig(bits=bits, ratio=ratio, passes=passes, dtype=dtype)
+            tag = f"{bits}-bit {ratio:g}x {passes}-pass {dtype}"
+            row, oy, _ = run_tier(14, tag, cfg, model, frames, dev, card, base)
+            base = oy if base is None else base
+            rows.append(row)
+    return rows
+
+
+def run_probe(dev, card: str) -> dict:
+    """Phase 15: the s8 x s8 -> s32 matmul probe at its shape
+    [864, 144] x [144, 512], with the launch count set to 0 just before the
+    call: exact against the int64 product and against torch._int_mm, timed
+    beside both. Returns its `kernels` row."""
+    import numpy as np
+    import torch
+
+    from raisr_tpu_torch.ops.cuda import probe_s16 as ps
+
+    rng = np.random.default_rng(15)
+    a = torch.tensor(rng.integers(-128, 128, (ps.M, ps.K)).astype(np.int8), device=dev)
+    b = torch.tensor(rng.integers(-128, 128, (ps.K, ps.N)).astype(np.int8), device=dev)
+    torch.cuda.synchronize()
+    ps.LAUNCHES = 0
+    c = ps.s8_matmul(a, b)
+    torch.cuda.synchronize()
+    launches = ps.LAUNCHES
+    print(f"phase 15 s8 matmul {tuple(a.shape)} x {tuple(b.shape)} -> {tuple(c.shape)} "
+          f"{c.dtype}, launches {launches}")
+    if launches != 1 or c.dtype != torch.int32 or tuple(c.shape) != (ps.M, ps.N):
+        raise SystemExit("phase 15 failed: launch count, shape or dtype")
+    errs = [hold("15 s8 matmul", "the int64 product", c, ps.s8_matmul_reference(a, b))]
+    lib_same = torch.equal(c, torch._int_mm(a, b))
+    print(f"phase 15 s8 matmul equals torch._int_mm: {lib_same}")
+    if not lib_same:
+        raise SystemExit("phase 15 failed: against torch._int_mm")
+    ms = cuda_ms(lambda: ps.s8_matmul(a, b), 50, 5)
+    lib = cuda_ms(lambda: torch._int_mm(a, b), 50, 5)
+    lib_b = cuda_ms(lambda: torch._int_mm(a, b), 50, 5)
+    ms_b = cuda_ms(lambda: ps.s8_matmul(a, b), 50, 5)
+    plain = cuda_ms(lambda: ps.s8_matmul_reference(a, b), 5, 1)
+    print(f"phase 15 times on {card}: s8_matmul / torch._int_mm / torch._int_mm / s8_matmul "
+          f"{ms:.4f} / {lib:.4f} / {lib_b:.4f} / {ms_b:.4f} ms, plain {plain:.3f} ms")
+    return kernel_row("s8_matmul", "raisr_tpu_torch/csrc/probe_s16.cu", "tools/probe_s16.py:44",
+                      launches, errs, ms, plain,
+                      bound(nbytes(a, b), nbytes(c), 2 * ps.M * ps.K * ps.N, "int8"),
+                      library_ms=lib)
 
 
 def graph_step(engine, y, u, v):
@@ -814,11 +1083,16 @@ def main() -> int:
     single, c15 = run_15x(y, u, v, dev, card, kw, args.profile)
     rows = [kernel_row("full_kernel", "raisr_tpu_torch/csrc/full_kernel.cu",
                        "raisr_tpu/ops/pallas/full_kernel.py:82", launches, errs,
-                       ms_kernel, ms_plain), single]
+                       ms_kernel, ms_plain, pass_bound(cheap, filters[0])), single]
     rows += run_filter(y, dev, card, model, kw, c15)
     rows += run_bf16(y, u, v, dev, card, model, kw, dict(oy=oy, ms_step=ms_step), c15,
                      args.profile)
     run_25x(y, dev, card, kw)
+    row, _, _ = run_tier(13, "int8 2x 2-pass", RaisrConfig(passes=PASSES, dtype="int8"), model,
+                         (y, u, v), dev, card, base=oy)
+    rows.append(row)
+    rows += run_hibit(dev, card)
+    rows.append(run_probe(dev, card))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// Whole RAISR pass (float32 and 8-bit bfloat16 tiers) for Hopper (sm_90a), for
+// Whole RAISR pass for Hopper (sm_90a), every tier of the TPU kernel, for
 // 4-phase (ratio 2) and single-phase (ratio 1.5) filter banks.
 //
 // Replaces two TPU kernels of raisr_tpu/ops/pallas/full_kernel.py:
@@ -7,12 +7,29 @@
 // They differ only in how a pixel picks its filter row: bank row
 // bucket * 4 + phase for a 4-phase bank, bucket for a single-phase one. Here
 // that is a template parameter of one kernel (kPhases), not a second copy.
-// The bank's element type is the other (TF): float for the float32 tier,
-// __nv_bfloat16 for the 8-bit bfloat16 tier, whose bank the host rounds to
-// bfloat16 with error diffusion along the taps (ops/cuda/full_kernel.py
-// round_bf16_error_diffused, as _round_bf16_error_diffused in the TPU kernel).
-// A bf16 tap times an 8-bit value is exact in float32, so that tier is the
-// float32 arithmetic on a 256-byte row instead of a 512-byte one.
+// The tier is the other (kTier), one case of the same kernel each; the host
+// prepares each tier's bank once (ops/cuda/full_kernel.py):
+//   kF32      float32 bank: the TPU's float32 grade (mxu_passes 2 and 3, so
+//             8, 10 and 16 bits alike).
+//   kBF16     bfloat16 bank rounded with error diffusion along the taps
+//             (round_bf16_error_diffused, as _round_bf16_error_diffused):
+//             the 8-bit bf16 tier (mxu_passes=1) and, at 10/16 bits, p_split.
+//             A bf16 tap times an integer of up to 16 bits is exact in
+//             float32, so the TPU's [F', F'] x [Phi, Plo] is F' x P: float32
+//             arithmetic on a 256-byte row instead of a 512-byte one.
+//   kPCenter  the 10-bit bf16 tier (pcenter=512): the same bf16 bank against
+//             the patch bf16(P - 512) (round to nearest even), then one add of
+//             the row's float32 bias 512 * sum(F') (pcenter_bias) after tap
+//             120. The hash reads the exact plane, so the centred values are a
+//             second staged tile.
+//   kInt8     the int8 tier (8-bit content): integer taps on the int16 grid
+//             (int8_bank, as _round_int_error_diffused with the bank's
+//             power-of-two scale), an exact int32 dot with the unshifted
+//             integer patch (a second staged tile of ints), rounded to float32
+//             and times the float32 1/scale. The TPU's -128 patch shift and
+//             its 128 * rowsum bias cancel, so neither is needed here; the
+//             power-of-two multiply after the int -> float rounding is JAX's
+//             (gt).astype(f32) * inv exactly.
 // One pass takes the integer-valued cheap-upscaled plane and returns the
 // integer-valued pass output:
 //   gradients -> separable 11-tap Gaussian structure tensor * nf ->
@@ -25,8 +42,8 @@
 //
 // The TPU kernels multiply every patch against all 216 buckets on the MXU and
 // select one, because a TPU has no per-lane gather. Here each thread gathers
-// its own bucket's filter row and runs plain float32 multiply-adds on the
-// natural [H, W] plane, in two launches:
+// its own bucket's filter row and runs plain multiply-adds (float32; int32 at
+// the int8 tier) on the natural [H, W] plane, in two launches:
 //   A (hash_filter_kernel): one block per 32x8 output tile stages the cheap
 //     tile with a 6-pixel halo in shared memory (zero outside the plane),
 //     builds the gradient products and the vertical then horizontal tensor
@@ -38,10 +55,10 @@
 //     rebuilding each neighbour's HR value from its raw and cheap values.
 //
 // What bounds it on an H100: launch A gathers about 484 B of filter (121 taps)
-// per pixel (242 B at the bf16 tier) and does 121 multiplies and adds, over
-// 8.3 M pixels per 4K plane.
+// per pixel (242 B at the bf16, pcenter and int8 tiers) and does 121
+// multiplies and adds, over 8.3 M pixels per 4K plane.
 // The bank (864 x 128 float32, 442 KB; single-phase 216 x 128, 110.6 KB;
-// half of each at the bf16 tier)
+// half of each at the 16-bit tiers)
 // stays resident in the 50 MB L2 and is read through the read-only path in
 // 16-byte loads; the patch comes from shared memory. Later work: a
 // single-phase bank (110.6 KB) fits whole in the 227 KB of shared memory a
@@ -65,6 +82,19 @@
 namespace {
 
 constexpr int kMaxEdges = 8;
+
+// the tier codes of the C entry point (ops/cuda/full_kernel.py _TIER_CODE)
+enum class Tier : int { kF32 = 0, kBF16 = 1, kPCenter = 2, kInt8 = 3 };
+
+// the pcenter tier's patch centre (raisr_tpu's pass_statics: pcenter=512.0)
+constexpr float kPCenterValue = 512.0f;
+
+// a tier's bank element and the patch value its dot reads
+template <Tier T> struct TierTypes;
+template <> struct TierTypes<Tier::kF32> { using Bank = float; using Patch = float; };
+template <> struct TierTypes<Tier::kBF16> { using Bank = __nv_bfloat16; using Patch = float; };
+template <> struct TierTypes<Tier::kPCenter> { using Bank = __nv_bfloat16; using Patch = float; };
+template <> struct TierTypes<Tier::kInt8> { using Bank = int16_t; using Patch = int; };
 
 // cheap tile: patch rows/cols plus one more for the gradient stencil
 constexpr int kImgH = kTileH + 2 * kMargin + 2;  // 20
@@ -134,13 +164,20 @@ __device__ __forceinline__ int hash_bucket(float a, float b, float d,
 }
 
 // kPhases: 4 (ratio-2 bank, rows bucket * 4 + phase) or 1 (single-phase
-// bank, rows bucket). TF: the bank's element type, float or __nv_bfloat16.
-template <int kPhases, typename TF>
+// bank, rows bucket). kTier: the tier (see the header). pbias (kPCenter) is
+// the bank's per-row bias, inv_scale (kInt8) its 1/scale; the other tiers
+// ignore them.
+template <int kPhases, Tier kTier>
 __global__ void __launch_bounds__(kTileW * kTileH)
 hash_filter_kernel(const float* __restrict__ cheap,
-                   const TF* __restrict__ filters, float* __restrict__ raw,
-                   int h, int w, HashParams hp) {
+                   const typename TierTypes<kTier>::Bank* __restrict__ filters,
+                   const float* __restrict__ pbias, float inv_scale,
+                   float* __restrict__ raw, int h, int w, HashParams hp) {
+  using Patch = typename TierTypes<kTier>::Patch;
+  // the pcenter and int8 dots read their own patch values: a second tile
+  constexpr bool kOwnPatch = kTier == Tier::kPCenter || kTier == Tier::kInt8;
   __shared__ float s_img[kImgH][kImgW];
+  __shared__ Patch s_pt[kOwnPatch ? kImgH : 1][kOwnPatch ? kImgW : 1];
   __shared__ float s_gp[3][kGpH][kGpW];
   __shared__ float s_v[3][kTileH][kGpW];
 
@@ -156,9 +193,15 @@ hash_filter_kernel(const float* __restrict__ cheap,
     const int j = k % kImgW;
     const int gr = y0 - kMargin - 1 + i;
     const int gc = x0 - kMargin - 1 + j;
-    s_img[i][j] = (gr >= 0 && gr < h && gc >= 0 && gc < w)
-                      ? cheap[static_cast<size_t>(gr) * w + gc]
-                      : 0.0f;
+    const float v = (gr >= 0 && gr < h && gc >= 0 && gc < w)
+                        ? cheap[static_cast<size_t>(gr) * w + gc]
+                        : 0.0f;
+    s_img[i][j] = v;
+    if constexpr (kTier == Tier::kPCenter) {
+      s_pt[i][j] = __bfloat162float(__float2bfloat16_rn(v - kPCenterValue));
+    } else if constexpr (kTier == Tier::kInt8) {
+      s_pt[i][j] = static_cast<int>(v);  // integer-valued plane: exact
+    }
   }
   __syncthreads();
 
@@ -217,8 +260,16 @@ hash_filter_kernel(const float* __restrict__ cheap,
     row = bucket * kPhases + phase;
   }
 
-  raw[static_cast<size_t>(r) * w + c] = gather_dot<kImgW>(
-      filters + static_cast<size_t>(row) * kFilterStride, &s_img[ty + 1][tx + 1]);
+  const auto* frow = filters + static_cast<size_t>(row) * kFilterStride;
+  float v;
+  if constexpr (kOwnPatch) {
+    v = gather_dot<kImgW>(frow, &s_pt[ty + 1][tx + 1]);
+  } else {
+    v = gather_dot<kImgW>(frow, &s_img[ty + 1][tx + 1]);
+  }
+  if constexpr (kTier == Tier::kPCenter) v = v + __ldg(pbias + row);
+  if constexpr (kTier == Tier::kInt8) v = v * inv_scale;
+  raw[static_cast<size_t>(r) * w + c] = v;
 }
 
 // Frame coordinate of a global row: identity for one frame; for a stack of
@@ -290,18 +341,37 @@ epilogue_kernel(const float* __restrict__ cheap, const float* __restrict__ raw,
   out[o] = fminf(fmaxf(floorf(val + 0.5f), p.min_val), p.max_val);
 }
 
+using HashFilterLaunch = void (*)(const float*, const void*, const float*, float, float*,
+                                  int, int, const HashParams&, cudaStream_t);
+
+template <int kPhases, Tier kTier>
+void launch_hash_filter(const float* cheap, const void* filters, const float* pbias,
+                        float inv_scale, float* raw, int h, int w, const HashParams& hp,
+                        cudaStream_t st) {
+  const dim3 block(kTileW, kTileH);
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
+  hash_filter_kernel<kPhases, kTier><<<grid, block, 0, st>>>(
+      cheap, static_cast<const typename TierTypes<kTier>::Bank*>(filters), pbias,
+      inv_scale, raw, h, w, hp);
+}
+
 }  // namespace
 
 // Launch A. Host arrays k1d[11], qstr[n_qstr], qcoh[n_qcoh] are copied into
 // the kernel's parameters. filters is [qangle*qstrength*qcoherence*phases,
-// 128], 16-byte aligned, float32 (filters_bf16 == 0) or bfloat16 (1); phases
-// is 4 or 1. Returns a cudaError_t value (0 on success).
+// 128], 16-byte aligned: float32 (tier 0), bfloat16 (tiers 1 and 2) or int16
+// (tier 3); phases is 4 or 1 for tiers 0 and 1, 4 for tiers 2 and 3. pbias is
+// the pcenter tier's float32 [rows] bias (tier 2, else unused), inv_scale the
+// int8 tier's 1/scale (tier 3). Returns a cudaError_t value (0 on success).
 extern "C" int raisr_full_hash_filter(
-    const float* cheap, const void* filters, int filters_bf16, float* raw,
-    int h, int w, int phases, const float* k1d, float nf, const float* qstr, int n_qstr,
-    const float* qcoh, int n_qcoh, int qangle, int qstrength, int qcoherence,
-    float angle_scale, int device, void* stream) {
-  if (h <= 0 || w <= 0 || (phases != 1 && phases != 4) || n_qstr < 0 ||
+    const float* cheap, const void* filters, int tier, const float* pbias,
+    float inv_scale, float* raw, int h, int w, int phases, const float* k1d,
+    float nf, const float* qstr, int n_qstr, const float* qcoh, int n_qcoh,
+    int qangle, int qstrength, int qcoherence, float angle_scale, int device,
+    void* stream) {
+  const bool four = phases == 4;
+  if (h <= 0 || w <= 0 || (phases != 1 && !four) || tier < 0 || tier > 3 ||
+      (tier >= 2 && !four) || (tier == 2 && pbias == nullptr) || n_qstr < 0 ||
       n_qstr > kMaxEdges || n_qcoh < 0 || n_qcoh > kMaxEdges || qangle <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -319,20 +389,23 @@ extern "C" int raisr_full_hash_filter(
   hp.qstrength = qstrength;
   hp.qcoherence = qcoherence;
   hp.angle_scale = angle_scale;
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* f32 = static_cast<const float*>(filters);
-  const __nv_bfloat16* b16 = static_cast<const __nv_bfloat16*>(filters);
-  if (phases == 4 && filters_bf16) {
-    hash_filter_kernel<4><<<grid, block, 0, st>>>(cheap, b16, raw, h, w, hp);
-  } else if (phases == 4) {
-    hash_filter_kernel<4><<<grid, block, 0, st>>>(cheap, f32, raw, h, w, hp);
-  } else if (filters_bf16) {
-    hash_filter_kernel<1><<<grid, block, 0, st>>>(cheap, b16, raw, h, w, hp);
-  } else {
-    hash_filter_kernel<1><<<grid, block, 0, st>>>(cheap, f32, raw, h, w, hp);
+  HashFilterLaunch launch = nullptr;
+  switch (static_cast<Tier>(tier)) {
+    case Tier::kF32:
+      launch = four ? &launch_hash_filter<4, Tier::kF32> : &launch_hash_filter<1, Tier::kF32>;
+      break;
+    case Tier::kBF16:
+      launch = four ? &launch_hash_filter<4, Tier::kBF16> : &launch_hash_filter<1, Tier::kBF16>;
+      break;
+    case Tier::kPCenter:
+      launch = &launch_hash_filter<4, Tier::kPCenter>;
+      break;
+    case Tier::kInt8:
+      launch = &launch_hash_filter<4, Tier::kInt8>;
+      break;
   }
+  launch(cheap, filters, pbias, inv_scale, raw, h, w, hp,
+         static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,13 +6,15 @@
 // filter-apply kernel (filter_apply_kernel) both call it, so they sum taps
 // 0..120 in the same order, each product and sum rounded on its own (nvcc
 // --fmad=false), as the plain PyTorch version (ops/filter_apply.py
-// apply_filters_taps) does.
+// apply_filters_taps) does. An int16 row (the int8 tier) sums exactly in
+// int32, so its order does not matter.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -28,17 +30,45 @@ constexpr int kTileW = 32;
 constexpr int kTileH = 8;
 
 // Dot of a bank row with the patch whose top-left pixel is `patch`, a
-// shared-memory plane with rows kStride floats apart; taps 0..120 in order.
-// TF is the bank's element type:
-//   float          a 512-byte row, 31 16-byte read-only loads of 4 taps;
-//   __nv_bfloat16  a 256-byte row, 16 16-byte loads of 8 taps, each tap
-//                  widened to float32 exactly (its bits are the high half).
-template <int kStride, typename TF>
+// shared-memory plane with rows kStride values apart; taps 0..120 in order.
+// TF is the bank's element type, TP the patch's:
+//   float, float          a 512-byte row, 31 16-byte read-only loads of 4 taps;
+//   __nv_bfloat16, float  a 256-byte row, 16 16-byte loads of 8 taps, each tap
+//                         widened to float32 exactly (its bits are the high
+//                         half);
+//   int16_t, int          a 256-byte row of integer taps, 16 16-byte loads of
+//                         8, each sign-extended and multiplied by the integer
+//                         patch value in int32. The caller keeps the sum exact
+//                         (|tap| <= 32768, 8-bit values: |sum| < 2^31); it
+//                         is returned rounded to float32 (round to nearest
+//                         even).
+template <int kStride, typename TF, typename TP>
 __device__ __forceinline__ float gather_dot(const TF* __restrict__ frow,
-                                            const float* patch) {
-  float acc = 0.0f;
-  if constexpr (std::is_same<TF, float>::value) {
+                                            const TP* patch) {
+  if constexpr (std::is_same<TF, int16_t>::value) {
+    static_assert(std::is_same<TP, int>::value, "an int16 row takes an int patch");
+    const uint4* u4p = reinterpret_cast<const uint4*>(frow);
+    int acc = 0;
+#pragma unroll
+    for (int q = 0; q < (kTaps + 7) / 8; ++q) {
+      const uint4 u4 = __ldg(u4p + q);
+      const unsigned int word[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int t = 8 * q + e;
+        if (t < kTaps) {
+          // little endian: tap 2k is the low half of word k, 2k+1 the high
+          const int tap = static_cast<int16_t>(
+              (e & 1) ? (word[e / 2] >> 16) : (word[e / 2] & 0xffffu));
+          acc += patch[(t / kPatch) * kStride + t % kPatch] * tap;
+        }
+      }
+    }
+    return __int2float_rn(acc);
+  } else if constexpr (std::is_same<TF, float>::value) {
+    static_assert(std::is_same<TP, float>::value, "a float row takes a float patch");
     const float4* f4p = reinterpret_cast<const float4*>(frow);
+    float acc = 0.0f;
 #pragma unroll
     for (int q = 0; q < (kTaps + 3) / 4; ++q) {
       const float4 f4 = __ldg(f4p + q);
@@ -51,10 +81,12 @@ __device__ __forceinline__ float gather_dot(const TF* __restrict__ frow,
         }
       }
     }
+    return acc;
   } else {
-    static_assert(std::is_same<TF, __nv_bfloat16>::value,
-                  "bank rows are float or __nv_bfloat16");
+    static_assert(std::is_same<TF, __nv_bfloat16>::value && std::is_same<TP, float>::value,
+                  "bank rows are float, __nv_bfloat16 (float patch) or int16_t (int patch)");
     const uint4* u4p = reinterpret_cast<const uint4*>(frow);
+    float acc = 0.0f;
 #pragma unroll
     for (int q = 0; q < (kTaps + 7) / 8; ++q) {
       const uint4 u4 = __ldg(u4p + q);
@@ -71,8 +103,8 @@ __device__ __forceinline__ float gather_dot(const TF* __restrict__ frow,
         }
       }
     }
+    return acc;
   }
-  return acc;
 }
 
 // Makes `device` current for one launch and restores the caller's device

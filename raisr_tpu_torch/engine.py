@@ -27,6 +27,23 @@ from raisr_tpu_torch.ops.pipeline import (
 )
 
 
+def unpack_planes(t: torch.Tensor) -> torch.Tensor:
+    """Packed integer planes (uint8, uint16) -> float32, on their device.
+    uint16 has few kernels on CUDA, so it is read through its int16 view (a
+    reinterpretation, no copy) and widened in int32."""
+    if t.dtype == torch.uint16:
+        t = t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return t.to(torch.float32)
+
+
+def pack_planes(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Integer-valued float32 planes in [0, 2^bits) -> `dtype` (uint8 or
+    uint16; uint16 written through int32 and an int16 view)."""
+    if dtype == torch.uint16:
+        return x.to(torch.int32).to(torch.int16).view(torch.uint16)
+    return x.to(dtype)
+
+
 def _resolve_backend(cfg: RaisrConfig, device: torch.device) -> str:
     """reference -> taps; pallas -> the fused pass (the CUDA kernel on a CUDA
     device, its plain version on the CPU); auto -> the fused kernel on CUDA
@@ -119,7 +136,8 @@ class RaisrEngine:
         self._np_out_dtype = np.uint8 if cfg.bits == 8 else np.uint16
         self._out_dtype = torch.uint8 if cfg.bits == 8 else torch.uint16
         # the bin edges travel as floats in self._statics; the banks are
-        # prepared for the pass once, here (phase-0 rows, bf16 rounding)
+        # prepared for the pass once, here (phase-0 rows, the tier's bank
+        # and its extras)
         self._filters = pass_banks(self._statics,
                                    bank_tensors(self.model, self.device)[0])
 
@@ -199,7 +217,7 @@ class RaisrEngine:
         integer planes out, all on the engine's device.
 
         Unpacks to float32, runs the RAISR passes on Y and the cheap upscale
-        on U/V, and repacks to uint8 (bits=8) or uint16, with no host
+        on U/V, and repacks to uint8 (bits=8) or uint16 (10/16), with no host
         synchronisation: no `.item()`, no copy to the host, no branch on
         tensor values. That is what lets a caller capture the step in a CUDA
         graph, the analogue of raisr_tpu's one-jit step under
@@ -212,13 +230,13 @@ class RaisrEngine:
                     f"batch_{name} is on {t.device}, the engine on {self.device}."
                 )
         dtype = self._out_dtype
-        out_y = self.process_batch_y(batch_y.to(torch.float32)).to(dtype)
+        out_y = pack_planes(self.process_batch_y(unpack_planes(batch_y)), dtype)
         out_u = (
-            self.process_batch_uv(batch_u.to(torch.float32)).to(dtype)
+            pack_planes(self.process_batch_uv(unpack_planes(batch_u)), dtype)
             if batch_u is not None else None
         )
         out_v = (
-            self.process_batch_uv(batch_v.to(torch.float32)).to(dtype)
+            pack_planes(self.process_batch_uv(unpack_planes(batch_v)), dtype)
             if batch_v is not None else None
         )
         return out_y, out_u, out_v

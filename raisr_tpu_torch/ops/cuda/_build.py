@@ -104,13 +104,16 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raisr_full_hash_filter
-    fn.argtypes = [vp, vp, i, vp, i, i, i, vp, f, vp, i, vp, i, i, i, i, f, i, vp]
+    fn.argtypes = [vp, vp, i, vp, f, vp, i, i, i, vp, f, vp, i, vp, i, i, i, i, f, i, vp]
     fn.restype = i
     fn = lib.raisr_full_epilogue
     fn.argtypes = [vp, vp, vp, i, i, f, f, i, i, i, i, i, i, i, vp]
     fn.restype = i
     fn = lib.raisr_filter_apply
     fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
+    fn.restype = i
+    fn = lib.raisr_s8_matmul
+    fn.argtypes = [vp, vp, vp, i, i, i, i, vp]
     fn.restype = i
     _LIB = lib
     return lib

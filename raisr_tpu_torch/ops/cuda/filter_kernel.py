@@ -7,7 +7,7 @@ Port of raisr_tpu/ops/pallas/filter_kernel.py:
     -> `apply_filters`, csrc/filter_kernel.cu filter_apply_kernel<4> / <1>;
   - apply_filters_hash_pallas (_band_kernel_fused, hash + filter, 4 phases)
     -> `apply_filters_hash`, launch A of csrc/full_kernel.cu
-    (hash_filter_kernel<4>), which the fused pass runs too.
+    (hash_filter_kernel<4, Tier::kF32>), which the fused pass runs too.
 The TPU knobs (tb2, rowbatch, mxu_passes, interpret) have no meaning here and
 are gone: the card computes plain float32 at every bit depth, so the 10-bit
 case (mxu_passes=3 on the TPU) needs nothing extra.
@@ -33,6 +33,9 @@ HASH_LAUNCHES = 0  # apply_filters_hash, through launch A
 
 FILTER_STRIDE = 128  # taps per bank row, zero-padded
 MAX_EDGES = 8
+# the pcenter tier's patch centre (raisr_tpu's pass_statics: pcenter=512.0);
+# csrc/full_kernel.cu kPCenterValue
+PCENTER = 512.0
 
 
 def _check_phases(pixel_types: int, ratio: int | None = None) -> None:
@@ -60,16 +63,24 @@ def hash_buckets_reference(
 def apply_filters_reference(
     cheap: torch.Tensor,  # [H, W] f32
     buckets: torch.Tensor,  # [H, W] int32
-    filters: torch.Tensor,  # [n_buckets * pixel_types, 128] f32 (or bf16)
+    filters: torch.Tensor,  # [n_buckets * pixel_types, 128] f32, bf16 or int16
     *,
     patch_size: int = 11,
     pixel_types: int = 4,
     patch_margin: int = 5,
     ratio: int = 2,
+    pbias: torch.Tensor | None = None,
+    inv_scale: float | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of apply_filters, on any device. A bucket
-    outside [0, n_buckets) gives 0; a bfloat16 bank is widened to float32
-    (exact) first."""
+    outside [0, n_buckets) gives 0. The bank's tier (ops/cuda/full_kernel.py)
+    decides the dot:
+      - float32, or bfloat16 widened to float32 (exact): against the plane,
+        taps in order 0..120;
+      - bfloat16 with `pbias` (pcenter): against bf16(plane - PCENTER), the
+        plane zero outside before the shift, then + pbias[row];
+      - int16 (int8 tier): in int64 against the integer plane, rounded to
+        float32 at the end and times `inv_scale`."""
     _check_phases(pixel_types, ratio)
     h, w = cheap.shape
     valid = (buckets >= 0) & (buckets < filters.shape[0] // pixel_types)
@@ -77,7 +88,17 @@ def apply_filters_reference(
     if pixel_types == 4:
         rows = rows * 4 + hashing.pixel_types(h, w, 2, patch_margin, True,
                                               device=cheap.device)
-    raw = apply_filters_taps(cheap, rows, filters.to(torch.float32), patch_size)
+    if filters.dtype == torch.int16:
+        acc = apply_filters_taps(cheap.to(torch.int64), rows, filters.to(torch.int64),
+                                 patch_size)
+        raw = acc.to(torch.float32) * inv_scale
+    elif pbias is not None:
+        centred = (cheap - PCENTER).to(torch.bfloat16).to(torch.float32)
+        raw = apply_filters_taps(centred, rows, filters.to(torch.float32), patch_size,
+                                 pad_value=-PCENTER)
+        raw = raw + pbias[rows.to(torch.int64)]
+    else:
+        raw = apply_filters_taps(cheap, rows, filters.to(torch.float32), patch_size)
     return torch.where(valid, raw, 0.0)
 
 
@@ -142,16 +163,22 @@ def _floats(values) -> ctypes.Array:
 
 
 def _launch_hash_filter(cheap, filters, raw, pixel_types, *, k1d, nf, qstr, qcoh,
-                        qangle, qstrength, qcoherence) -> None:
+                        qangle, qstrength, qcoherence, tier: int = 0,
+                        pbias: torch.Tensor | None = None,
+                        inv_scale: float | None = None) -> None:
     """Launch A (hash + gather-dot) on the current stream; raises if the
-    launch fails. The arguments are checked by the caller."""
+    launch fails. `tier` is csrc/full_kernel.cu's tier code (0 float32,
+    1 bfloat16, 2 pcenter with `pbias`, 3 int8 with `inv_scale`). The
+    arguments are checked by the caller."""
     from raisr_tpu_torch.ops.cuda._build import load_library
 
     h, w = cheap.shape
     dev, stream = _device_and_stream(cheap)
     k1d_c, qstr_c, qcoh_c = _floats(k1d), _floats(qstr), _floats(qcoh)
     err = load_library().raisr_full_hash_filter(
-        cheap.data_ptr(), filters.data_ptr(), int(filters.dtype == torch.bfloat16),
+        cheap.data_ptr(), filters.data_ptr(), tier,
+        pbias.data_ptr() if pbias is not None else None,
+        float(inv_scale) if inv_scale is not None else 1.0,
         raw.data_ptr(), h, w, pixel_types,
         ctypes.addressof(k1d_c), float(nf),
         ctypes.addressof(qstr_c), len(qstr), ctypes.addressof(qcoh_c), len(qcoh),

@@ -1,5 +1,5 @@
-"""Whole RAISR pass (float32 and 8-bit bfloat16 tiers), 4-phase and
-single-phase: the CUDA kernel's wrappers and their plain PyTorch version.
+"""Whole RAISR pass, every tier, 4-phase and single-phase: the CUDA kernel's
+wrappers, their plain PyTorch version, and the tiers' bank preparation.
 
 Port of raisr_tpu/ops/pallas/full_kernel.py:raisr_pass_pallas_full (ratio 2,
 4 pixel phases) and raisr_pass_pallas_full_single (single-phase banks, e.g.
@@ -7,17 +7,24 @@ ratio 1.5). One kernel, csrc/full_kernel.cu, serves both (two launches per
 pass, see its header); the phase count is its only difference. The TPU tiling
 and precision knobs (tb2, ostack, rowbatch, cchunk, gchunk, hashloop, mpack,
 ftrans, mxu_passes, p_split, i8, pcenter, interpret) have no meaning here and
-are gone. The tier is the bank's dtype: a float32 bank is the float32 tier; a
-bfloat16 bank from `round_bf16_error_diffused` is the bf16 tier at 8 bits
-(the TPU's mxu_passes=1: error-diffused bf16 filters, bf16 patches, exact for
-8-bit values, float32 sums). The int8 and >8-bit bf16 tiers are later work.
+are gone. The tier is the bank's dtype (and, for pcenter, its bias), each
+bank prepared once on the host side:
+  - float32: the TPU's float32 grade (mxu_passes 2 and 3), at every depth;
+  - bfloat16 (`round_bf16_error_diffused`): the 8-bit bf16 tier
+    (mxu_passes=1), and p_split at 10/16 bits: a bf16 tap times an integer
+    of up to 16 bits is exact in float32, so [F', F'] x [Phi, Plo] is F' x P;
+  - pcenter, 10 bits, 4 phases: the same bf16 bank against bf16(P - 512),
+    plus the per-row bias `pcenter_bias` (512 * sum(F'));
+  - int8, 8 bits, 4 phases: int16 taps from `int8_bank` (the bank's
+    power-of-two scale, error-diffused rounding) in an exact integer dot,
+    times 1/scale.
 
 `raisr_pass_full` and `raisr_pass_full_single` run the kernel on a CUDA
 tensor and the plain version on a CPU tensor. There is no fallback: on CUDA
-they launch the kernel or raise. `LAUNCHES` and `SINGLE_LAUNCHES` count the
-passes that went through the kernel with a float32 bank, 4-phase and
-single-phase; `BF16_LAUNCHES` and `SINGLE_BF16_LAUNCHES` those with a bfloat16
-bank.
+they launch the kernel or raise. Each tier and phase count has its launch
+count: `LAUNCHES` and `SINGLE_LAUNCHES` (float32, 4-phase and single-phase),
+`BF16_LAUNCHES` and `SINGLE_BF16_LAUNCHES` (bfloat16, p_split included),
+`PCENTER_LAUNCHES` and `INT8_LAUNCHES` (4-phase only, as on the TPU).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from raisr_tpu_torch.ops.cuda.filter_kernel import (
     FILTER_STRIDE,
+    PCENTER,
     _check_bank,
     _check_hash_args,
     _check_phases,
@@ -39,10 +47,23 @@ from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end, zone_h
 
 LAUNCHES = 0  # 4-phase passes, float32 bank
 SINGLE_LAUNCHES = 0  # single-phase passes, float32 bank
-BF16_LAUNCHES = 0  # 4-phase passes, bfloat16 bank
+BF16_LAUNCHES = 0  # 4-phase passes, bfloat16 bank (8-bit bf16 and p_split)
 SINGLE_BF16_LAUNCHES = 0  # single-phase passes, bfloat16 bank
+PCENTER_LAUNCHES = 0  # 4-phase passes, bfloat16 bank and pcenter bias
+INT8_LAUNCHES = 0  # 4-phase passes, int16 bank (the int8 tier)
+
+# (tier, phases) -> its launch count; csrc/full_kernel.cu's tier codes
+_COUNTS = {
+    ("float32", 4): "LAUNCHES", ("float32", 1): "SINGLE_LAUNCHES",
+    ("bfloat16", 4): "BF16_LAUNCHES", ("bfloat16", 1): "SINGLE_BF16_LAUNCHES",
+    ("pcenter", 4): "PCENTER_LAUNCHES", ("int8", 4): "INT8_LAUNCHES",
+}
+_TIER_CODE = {"float32": 0, "bfloat16": 1, "pcenter": 2, "int8": 3}
 
 _N_TAPS = 121
+# the int8 tier's grid: raisr_tpu's balanced hi/lo int8 pairs span
+# [-32896, 32639] (full_kernel.py:76, :779)
+_INT_LO, _INT_HI = -32896.0, 32639.0
 
 
 def round_bf16_error_diffused(filters: torch.Tensor) -> torch.Tensor:
@@ -66,9 +87,77 @@ def round_bf16_error_diffused(filters: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def round_int_error_diffused(f: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Taps onto the integer grid round(f * scale) with error diffusion along
+    the last (tap) axis, clamped to [-32896, 32639]; returns the integer
+    values as float32.
+
+    Counterpart of raisr_tpu's _round_int_error_diffused
+    (ops/pallas/full_kernel.py:68-79), and bit-identical to it: per tap in
+    order, q = clip(round((f + carry) * scale)) (round half to even), then
+    carry = (carry + f) - q / scale, all in float32."""
+    f = f.to(torch.float32)
+    carry = torch.zeros(f.shape[:-1], dtype=torch.float32, device=f.device)
+    qs = []
+    for k in range(f.shape[-1]):
+        q = torch.clamp(torch.round((f[..., k] + carry) * scale), _INT_LO, _INT_HI)
+        carry = (carry + f[..., k]) - q / scale
+        qs.append(q)
+    return torch.stack(qs, dim=-1)
+
+
+def int8_scale(filters: torch.Tensor) -> torch.Tensor:
+    """The int8 tier's power-of-two scale of one pass's bank, as raisr_tpu
+    computes it (ops/pallas/full_kernel.py:780-781), in float32:
+    exp2(floor(log2(32639 / max(absmax, 1e-6)))) over taps 0..120. Taken on
+    the CPU, so every device gets the same scale (float32 log2 decides the
+    floor just under a power of two)."""
+    f = filters[:, :_N_TAPS].detach().to("cpu", torch.float32)
+    absmax = torch.clamp(f.abs().max(), min=1e-6)
+    return torch.exp2(torch.floor(torch.log2(torch.tensor(_INT_HI) / absmax)))
+
+
+def int8_bank(filters: torch.Tensor) -> tuple[torch.Tensor, float]:
+    """One pass's bank for the int8 tier, prepared once: the taps on the
+    int16 grid of `int8_scale`, rounded with error diffusion
+    (round_int_error_diffused, taken on the CPU), as a contiguous int16
+    [rows, 128] tensor on the bank's device (taps 121..127 are 0), and the
+    float32 1/scale as a float. The TPU kernel splits each tap into a hi/lo
+    int8 pair and shifts the patch by -128 (its bias 128 * rowsum undoes the
+    shift); the CUDA kernel multiplies the whole int16 tap by the unshifted
+    integer patch in int32, so it needs neither."""
+    scale = int8_scale(filters)
+    q = round_int_error_diffused(filters[:, :_N_TAPS].detach().to("cpu"), scale)
+    if q.min() < -32768:  # the carry stays within a step of the clamp
+        raise ValueError("int8 bank: a tap fell below the int16 range")
+    out = torch.zeros((q.shape[0], FILTER_STRIDE), dtype=torch.int16)
+    out[:, :_N_TAPS] = q.to(torch.int16)
+    return out.to(filters.device), float(1.0 / scale)
+
+
+def pcenter_bias(bank: torch.Tensor) -> torch.Tensor:
+    """The pcenter tier's per-row bias, PCENTER * sum(F') of a bfloat16 bank
+    (raisr_tpu: full_kernel.py:806-814): it adds back what centring the
+    patch at 512 took away. The sum is taken in float64, where it is exact
+    for bf16 taps within 2^40 of one another, and rounded once to float32,
+    so it does not depend on the device's summation order. Returns a
+    contiguous float32 [rows] tensor."""
+    return (PCENTER * bank.to(torch.float64).sum(dim=1)).to(torch.float32).contiguous()
+
+
+def bank_tier(filters: torch.Tensor, pbias: torch.Tensor | None = None) -> str:
+    """The tier a prepared bank runs: "int8" (int16 bank), "pcenter"
+    (bfloat16 bank with a bias), "bfloat16" or "float32"."""
+    if filters.dtype == torch.int16:
+        return "int8"
+    if pbias is not None:
+        return "pcenter"
+    return "bfloat16" if filters.dtype == torch.bfloat16 else "float32"
+
+
 def raisr_pass_full_reference(
     cheap: torch.Tensor,  # [H, W] f32 (integer-valued)
-    filters: torch.Tensor,  # [216 * pixel_types, 128] f32 or bf16
+    filters: torch.Tensor,  # [216 * pixel_types, 128] f32, bf16 or int16
     *,
     k1d,
     nf: float,
@@ -87,19 +176,22 @@ def raisr_pass_full_reference(
     row0: int = 0,
     zone_h: int = 0,
     pixel_types: int = 4,
+    pbias: torch.Tensor | None = None,
+    inv_scale: float | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of one fused pass, on any device: the plain hash
     and filter apply of ops/cuda/filter_kernel.py (gradients -> separable
-    structure tensor -> hash buckets -> (pixel phases) -> 121-tap filter),
-    then the frame-aware pass epilogue. Same arguments as raisr_pass_full; a
-    bfloat16 bank is widened to float32 (exact)."""
+    structure tensor -> hash buckets -> (pixel phases) -> 121-tap filter at
+    the bank's tier), then the frame-aware pass epilogue. Same arguments as
+    raisr_pass_full."""
     w = cheap.shape[1]
     margin = patch_size // 2
     buckets = hash_buckets_reference(
         cheap, k1d=k1d, nf=nf, qstr=qstr, qcoh=qcoh, qangle=qangle,
         qstrength=qstrength, qcoherence=qcoherence)
     raw = apply_filters_reference(cheap, buckets, filters, patch_size=patch_size,
-                                  pixel_types=pixel_types, patch_margin=margin)
+                                  pixel_types=pixel_types, patch_margin=margin,
+                                  pbias=pbias, inv_scale=inv_scale)
     return _finish_pass(
         cheap, raw,
         min_val=min_val, max_val=max_val, blending=blending,
@@ -116,19 +208,42 @@ def raisr_pass_full_single_reference(cheap, filters, **kw) -> torch.Tensor:
 
 
 def _check(cheap, filters, k1d, qstr, qcoh, qangle, qstrength, qcoherence,
-           patch_size, blending, pixel_types):
+           patch_size, blending, pixel_types, pbias=None, inv_scale=None,
+           max_val=255) -> str:
+    """Checks the kernel's arguments; returns the bank's tier. The int8
+    tier's int32 dot is exact for 8-bit planes only (121 * 32896 * 255 <
+    2^31), so an int16 bank on a plane whose max_val is above 255 is
+    refused."""
     _check_phases(pixel_types)
     _check_plane(cheap)
-    _check_bank(filters, cheap.device, qangle * qstrength * qcoherence * pixel_types,
-                (torch.float32, torch.bfloat16))
+    n_rows = qangle * qstrength * qcoherence * pixel_types
+    _check_bank(filters, cheap.device, n_rows, (torch.float32, torch.bfloat16, torch.int16))
     _check_hash_args(k1d, qstr, qcoh, qstrength, qcoherence, patch_size)
     if blending not in (1, 2):
         raise ValueError(f"blending must be 1 or 2, got {blending}")
+    tier = bank_tier(filters, pbias)
+    if (tier, pixel_types) not in _COUNTS:
+        raise ValueError(f"the {tier} tier takes 4 pixel types, got {pixel_types}")
+    if pbias is not None and (
+        filters.dtype != torch.bfloat16 or pbias.dtype != torch.float32
+        or tuple(pbias.shape) != (n_rows,) or pbias.device != cheap.device
+        or not pbias.is_contiguous()
+    ):
+        raise ValueError(
+            f"pbias goes with a bfloat16 bank and must be a contiguous float32 "
+            f"[{n_rows}] tensor on {cheap.device}, got {pbias.dtype} "
+            f"{tuple(pbias.shape)} on {pbias.device} with a {filters.dtype} bank"
+        )
+    if (tier == "int8") != (inv_scale is not None):
+        raise ValueError("inv_scale goes with an int16 bank (the int8 tier), and only there")
+    if tier == "int8" and max_val > 255:
+        raise ValueError(f"the int8 tier takes 8-bit planes (max_val <= 255), got {max_val}")
+    return tier
 
 
 def raisr_pass_full(
     cheap: torch.Tensor,  # [H, W] f32 (integer-valued)
-    filters: torch.Tensor,  # [216 * pixel_types, 128] f32 or bf16
+    filters: torch.Tensor,  # [216 * pixel_types, 128] f32, bf16 or int16
     *,
     k1d,
     nf: float,
@@ -147,10 +262,14 @@ def raisr_pass_full(
     row0: int = 0,  # global row of plane row 0 (row stripes)
     zone_h: int = 0,  # >0: global frame height for zone tests (stripes)
     pixel_types: int = 4,  # 4: ratio-2 bank [864, 128]; 1: single-phase [216, 128]
+    pbias: torch.Tensor | None = None,  # pcenter: pcenter_bias of the bf16 bank
+    inv_scale: float | None = None,  # int8: the 1/scale of int8_bank
 ) -> torch.Tensor:
     """One complete RAISR pass, fused: the CUDA kernel for a CUDA tensor,
-    raisr_pass_full_reference for a CPU tensor. `filters` is float32, or
-    bfloat16 for the bf16 tier (round_bf16_error_diffused).
+    raisr_pass_full_reference for a CPU tensor. The bank sets the tier:
+    float32; bfloat16 (round_bf16_error_diffused; the 8-bit bf16 tier and
+    p_split); bfloat16 with `pbias` (pcenter, 4 phases); int16 with
+    `inv_scale` (int8_bank, 4 phases, 8-bit planes).
 
     k1d, qstr and qcoh are sequences of floats (the edges taken from the
     bank's float32 arrays); they are passed to the kernel as float32."""
@@ -160,13 +279,14 @@ def raisr_pass_full(
         min_val=min_val, max_val=max_val, blending=blending,
         exact_edges=exact_edges, frame_h=frame_h, frame_pad=frame_pad,
         row0=row0, zone_h=zone_h, pixel_types=pixel_types,
+        pbias=pbias, inv_scale=inv_scale,
     )
     if cheap.device.type == "cpu":
         return raisr_pass_full_reference(cheap, filters, **kw)
     if cheap.device.type != "cuda":
         raise ValueError(f"raisr_pass_full runs on cpu or cuda, not {cheap.device}")
-    _check(cheap, filters, k1d, qstr, qcoh, qangle, qstrength, qcoherence,
-           patch_size, blending, pixel_types)
+    tier = _check(cheap, filters, k1d, qstr, qcoh, qangle, qstrength, qcoherence,
+                  patch_size, blending, pixel_types, pbias, inv_scale, max_val)
 
     from raisr_tpu_torch.ops.cuda._build import load_library
 
@@ -175,7 +295,8 @@ def raisr_pass_full(
     out = torch.empty_like(cheap)
     _launch_hash_filter(cheap, filters, raw, pixel_types, k1d=k1d, nf=nf, qstr=qstr,
                         qcoh=qcoh, qangle=qangle, qstrength=qstrength,
-                        qcoherence=qcoherence)
+                        qcoherence=qcoherence, tier=_TIER_CODE[tier], pbias=pbias,
+                        inv_scale=inv_scale)
     dev, stream = _device_and_stream(cheap)
     err = load_library().raisr_full_epilogue(
         cheap.data_ptr(), raw.data_ptr(), out.data_ptr(), h, w,
@@ -185,16 +306,8 @@ def raisr_pass_full(
     )
     if err:
         raise RuntimeError(f"raisr_full_epilogue launch failed: cudaError {err}")
-    global LAUNCHES, SINGLE_LAUNCHES, BF16_LAUNCHES, SINGLE_BF16_LAUNCHES
-    bf16 = filters.dtype == torch.bfloat16
-    if pixel_types == 1 and bf16:
-        SINGLE_BF16_LAUNCHES += 1
-    elif pixel_types == 1:
-        SINGLE_LAUNCHES += 1
-    elif bf16:
-        BF16_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+    count = _COUNTS[(tier, pixel_types)]
+    globals()[count] += 1
     return out
 
 

@@ -21,11 +21,14 @@ def apply_filters_taps(
     filter_idx: torch.Tensor,
     filters: torch.Tensor,
     patch_size: int,
+    pad_value: float = 0.0,
 ) -> torch.Tensor:
-    """Reference formulation. cheap [H,W] f32; filter_idx [H,W] int in
-    [0, num_filters); filters [num_filters, aligned_taps]."""
+    """Reference formulation. cheap [H,W] f32 (or int64, with an int64 bank:
+    then the sum is exact); filter_idx [H,W] int in [0, num_filters); filters
+    [num_filters, aligned_taps]. Patch reads outside the plane give
+    pad_value."""
     margin = patch_size // 2
-    padded = F.pad(cheap, (margin, margin, margin, margin))
+    padded = F.pad(cheap, (margin, margin, margin, margin), value=pad_value)
     h, w = cheap.shape
     idx = filter_idx.to(torch.int64)
     acc = torch.zeros_like(cheap)

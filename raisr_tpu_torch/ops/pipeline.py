@@ -7,8 +7,9 @@ live in ops/epilogue.py, which the fused kernel's wrapper shares.
 
 Backends: "pallas" runs the fused pass (ops/cuda/full_kernel.py: the CUDA
 kernel on a CUDA tensor, its plain version on a CPU tensor) for ratio-2
-(4-phase) and single-phase (1.5x) banks, at the float32 tier and the 8-bit
-bfloat16 tier; "taps" is the unfused reference formulation in plain PyTorch on
+(4-phase) and single-phase (1.5x) banks, at every tier of raisr_tpu's
+pass_statics (float32, bfloat16 with p_split at >8 bits, pcenter, int8; see
+`_fused_tier`); "taps" is the unfused reference formulation in plain PyTorch on
 any device. A 4-phase bank at a ratio in (2, 3), e.g. 2.5x, uses phase 0 for
 every pixel, as the reference and the taps path do, so the fused backend runs
 it as a single-phase pass over the bank's phase-0 rows (see `pass_banks`).
@@ -29,7 +30,12 @@ from raisr_tpu_torch.model.gaussian import (
 )
 from raisr_tpu_torch.model.loader import RaisrModel
 from raisr_tpu_torch.ops import hashing
-from raisr_tpu_torch.ops.cuda.full_kernel import raisr_pass_full, round_bf16_error_diffused
+from raisr_tpu_torch.ops.cuda.full_kernel import (
+    int8_bank,
+    pcenter_bias,
+    raisr_pass_full,
+    round_bf16_error_diffused,
+)
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
 from raisr_tpu_torch.ops.filter_apply import apply_filters_taps
 from raisr_tpu_torch.ops.resize import cheap_upscale, cheap_upscale_stacked
@@ -52,8 +58,9 @@ class PassStatics:
     blending: int
     exact_edges: bool
     backend: str  # "taps" | "pallas"
-    # the fused pass's tier: "float32", or "bfloat16" (8 bits: the bank
-    # rounded to bf16 with error diffusion, raisr_tpu's mxu_passes=1); the
+    # the fused pass's tier (`_fused_tier`): "float32", "bfloat16" (the bank
+    # rounded to bf16 with error diffusion: raisr_tpu's mxu_passes=1 at 8
+    # bits, p_split at 10/16), "pcenter" (10 bits, 4 phases) or "int8"; the
     # taps backend runs float32
     tier: str = "float32"
     # per-pass (qstr, qcoh) bin edges as python floats (the bank's float32
@@ -71,9 +78,20 @@ class PassStatics:
         return (self.patch_size >> 1) + 1
 
 
+@dataclasses.dataclass(frozen=True)
+class PassBank:
+    """One pass's bank as the pass reads it (`pass_banks`): the filters and
+    the tier's extras, the pcenter tier's per-row bias `pbias` and the int8
+    tier's `inv_scale` (1/scale)."""
+
+    filters: torch.Tensor
+    pbias: torch.Tensor | None = None
+    inv_scale: float | None = None
+
+
 def raisr_pass(
     cheap: torch.Tensor,
-    filters: torch.Tensor,
+    bank: PassBank,
     statics: PassStatics,
     pass_idx: int = 0,
     frame_h: int = 0,
@@ -93,10 +111,11 @@ def raisr_pass(
     if s.backend == "pallas":
         # whole pass in one fused call: 4-phase for ratio-2 banks, else the
         # single-phase form over a single-phase bank or the phase-0 rows of a
-        # 4-phase one (pass_banks; pass_statics refuses any other bank)
+        # 4-phase one (pass_banks; pass_statics refuses any other bank); the
+        # tier rides on the prepared bank and its extras
         return raisr_pass_full(
             cheap,
-            filters,
+            bank.filters,
             k1d=tuple(float(v) for v in gaussian_kernel_1d(s.patch_size)),
             nf=normalization_factor(s.bits),
             qstr=qstr,
@@ -112,6 +131,8 @@ def raisr_pass(
             frame_h=frame_h,
             frame_pad=frame_pad,
             pixel_types=4 if s.use_pixel_type else 1,
+            pbias=bank.pbias,
+            inv_scale=bank.inv_scale,
         )
     if s.backend != "taps":
         raise RaisrError(f"backend {s.backend!r} is not ported to raisr_tpu_torch.")
@@ -125,7 +146,8 @@ def raisr_pass(
     ptype = hashing.pixel_types(
         h, w, s.ratio_int, s.patch_margin, s.use_pixel_type, device=cheap.device
     )
-    raw = apply_filters_taps(cheap, buckets * s.pixel_types + ptype, filters, s.patch_size)
+    raw = apply_filters_taps(cheap, buckets * s.pixel_types + ptype, bank.filters,
+                             s.patch_size)
     return _finish_pass(
         cheap, raw,
         min_val=s.min_val, max_val=s.max_val, blending=int(s.blending),
@@ -135,32 +157,40 @@ def raisr_pass(
     )
 
 
-def _fused_tier(cfg: RaisrConfig) -> str:
-    """The fused pass's tier for cfg.dtype ("auto" is already "bfloat16"):
-    raisr_tpu's pass_statics at 8 bits runs bfloat16 and bfloat16_exact
-    alike, as one bf16 slot with no p_split (mxu_passes=1)."""
+def _fused_tier(cfg: RaisrConfig, single_phase: bool) -> str:
+    """The fused pass's tier for cfg.dtype ("auto" is already "bfloat16"),
+    raisr_tpu's pass_statics (ops/pipeline.py:320-353) on the port's kernel:
+      - float32 at every depth (mxu_passes 2 and 3) -> "float32";
+      - bfloat16 at 8 bits (mxu_passes=1) and bfloat16_exact at 8 bits ->
+        "bfloat16";
+      - bfloat16 at 10 bits, 4 phases (pcenter=512) -> "pcenter";
+      - bfloat16 at 16 bits, bfloat16 at 10 bits on the single-phase pass, and
+        bfloat16_exact at 10/16 bits (p_split: F' against the exact patch) ->
+        "bfloat16", the same bf16 bank and kernel (a bf16 tap times an integer
+        of up to 16 bits is exact in float32);
+      - int8 (8 bits, ratio 2) -> "int8".
+    `single_phase`: the fused backend runs the single-phase pass, for a
+    single-phase bank or for the phase-0 rows of a 4-phase one at a ratio in
+    (2, 3). raisr_tpu decides on the bank alone, and at 2.5x and 10 bits runs
+    its unfused kernel at mxu_passes=1 with no centring (ROADMAP C10); the
+    port runs p_split there, as raisr_tpu's single-phase kernel would."""
     if cfg.dtype == "int8":
-        raise RaisrError(
-            "dtype int8 is not ported to the CUDA kernel yet: the int8-pair "
-            "tier is ROADMAP B3."
-        )
+        return "int8"
+    if cfg.dtype == "bfloat16" and cfg.bits == 10 and not single_phase:
+        return "pcenter"
     if cfg.dtype in ("bfloat16", "bfloat16_exact"):
-        if cfg.bits != 8:
-            raise RaisrError(
-                f"dtype {cfg.dtype} at {cfg.bits} bits (pcenter / p_split) is not "
-                "ported to the CUDA kernel yet: it is ROADMAP B4."
-            )
         return "bfloat16"
     return "float32"
 
 
 def pass_statics(cfg: RaisrConfig, model: RaisrModel, backend: str) -> PassStatics:
-    """Static pass parameters. The fused backend runs the float32 tier and,
-    at 8 bits, the bfloat16 tier, for ratio-2 (4-phase) and single-phase
-    banks, and a 4-phase bank at a ratio in (2, 3) with phase 0 everywhere;
-    the taps backend ignores the tier, as in raisr_tpu."""
-    tier = _fused_tier(cfg) if backend == "pallas" else "float32"
+    """Static pass parameters. The fused backend runs every tier of
+    `_fused_tier`, for ratio-2 (4-phase) and single-phase banks, and a
+    4-phase bank at a ratio in (2, 3) with phase 0 everywhere; the taps
+    backend ignores the tier, as in raisr_tpu."""
     pixel_types = model.banks[0].pixel_types
+    single_phase = pixel_types == 1 or not cfg.use_pixel_type
+    tier = _fused_tier(cfg, single_phase) if backend == "pallas" else "float32"
     if (backend == "pallas" and not cfg.use_pixel_type and pixel_types != 1
             and not (pixel_types == 4 and int(cfg.ratio) == 2)):
         # raisr_tpu sends these banks to its unfused Pallas filter kernel,
@@ -195,30 +225,37 @@ def pass_statics(cfg: RaisrConfig, model: RaisrModel, backend: str) -> PassStati
     )
 
 
-def pass_banks(statics: PassStatics, filters) -> tuple[torch.Tensor, ...]:
+def pass_banks(statics: PassStatics, filters) -> tuple[PassBank, ...]:
     """The banks the passes read, prepared once (the engine calls this at
     construction, never per pass). For the fused backend:
       - a 4-phase bank at a ratio other than 2 keeps its phase-0 rows
         (filters[0::4], contiguous): the reference's pixelType is 0 there
         (Raisr.cpp:1477-1480), as in the taps path's row bucket * 4 + 0;
-      - the bfloat16 tier rounds each bank with round_bf16_error_diffused.
+      - the bfloat16 and pcenter tiers round each bank with
+        round_bf16_error_diffused, and pcenter adds its bias (pcenter_bias);
+      - the int8 tier puts each bank on its int16 grid (int8_bank).
     The taps backend reads the banks as they are."""
     s = statics
     if s.backend != "pallas":
-        return tuple(filters)
+        return tuple(PassBank(f) for f in filters)
     out = []
     for f in filters:
         if not s.use_pixel_type and s.pixel_types == 4:
             f = f[0::4].contiguous()
-        if s.tier == "bfloat16":
-            f = round_bf16_error_diffused(f)
-        out.append(f)
+        if s.tier == "int8":
+            q, inv_scale = int8_bank(f)
+            out.append(PassBank(q, inv_scale=inv_scale))
+        elif s.tier in ("bfloat16", "pcenter"):
+            f16 = round_bf16_error_diffused(f)
+            out.append(PassBank(f16, pcenter_bias(f16) if s.tier == "pcenter" else None))
+        else:
+            out.append(PassBank(f))
     return tuple(out)
 
 
 def process_plane_y(
     lr: torch.Tensor,
-    bank_filters: tuple[torch.Tensor, ...],
+    bank_filters: tuple[PassBank, ...],
     statics: PassStatics,
     passes: int,
     two_pass_mode: int,
@@ -256,7 +293,7 @@ def guard_band_stack(batch: torch.Tensor, pad: int) -> torch.Tensor:
 
 def process_plane_y_batch(
     batch_lr: torch.Tensor,  # [N, H, W]
-    bank_filters: tuple[torch.Tensor, ...],
+    bank_filters: tuple[PassBank, ...],
     statics: PassStatics,
     passes: int,
     two_pass_mode: int,

@@ -23,16 +23,17 @@ import torch
 import raisr_tpu.config as jcfg
 import raisr_tpu.engine as jengine
 from raisr_tpu.model.gaussian import gaussian_kernel_1d, normalization_factor
+from raisr_tpu.ops.pipeline import pass_statics as j_statics
 from raisr_tpu.ops.pallas.full_kernel import (
     _round_bf16_error_diffused,
     raisr_pass_pallas_full,
     raisr_pass_pallas_full_single,
 )
-from raisr_tpu_torch import RaisrConfig, RaisrEngine, RaisrError
+from raisr_tpu_torch import RaisrConfig, RaisrEngine
 from raisr_tpu_torch.model.loader import from_jax_model
 from raisr_tpu_torch.ops.cuda import full_kernel as fk
 from raisr_tpu_torch.ops.resize import cheap_upscale
-from torch_port_util import frac_and_median, make_filters, make_jax_model, smooth
+from torch_port_util import frac_and_median, jax_tier, make_filters, make_jax_model, smooth
 
 FUZZ_FRAC = 0.02
 
@@ -145,7 +146,7 @@ def test_engine_auto_is_the_plain_bf16_passes(yuv):
     y = torch.from_numpy(yuv[0])
     oy = eng.process_batch_y(y)
     banks = [fk.round_bf16_error_diffused(torch.from_numpy(b.filters)) for b in tm.banks]
-    assert all(torch.equal(a, b) for a, b in zip(eng._filters, banks))
+    assert all(torch.equal(a.filters, b) for a, b in zip(eng._filters, banks))
     h, w = y.shape[1:]
     for i in range(y.shape[0]):
         x = cheap_upscale(y[i].to(torch.float32), 2 * h, 2 * w, 8)
@@ -156,14 +157,30 @@ def test_engine_auto_is_the_plain_bf16_passes(yuv):
 
 
 def test_engine_refuses_later_tiers():
-    tm = from_jax_model(make_jax_model(passes=1, seed=67))
-    for dtype in ("bfloat16", "bfloat16_exact", "auto"):
-        for bits in (10, 16):
-            with pytest.raises(RaisrError, match="ROADMAP B4"):
-                RaisrEngine(RaisrConfig(dtype=dtype, bits=bits, backend="pallas"), tm,
-                            device="cpu")
-    with pytest.raises(RaisrError, match="ROADMAP B3"):
-        RaisrEngine(RaisrConfig(dtype="int8", backend="pallas"), tm, device="cpu")
+    """No tier is refused any more: at 10/16 bits every bf16 dtype, float32
+    and int8 build an engine on the fused backend, at the tier raisr_tpu's
+    pass_statics gives (pcenter for bfloat16/auto at 10 bits, the bf16 bank
+    (p_split) otherwise, float32 at every depth, int8 with its int16 banks).
+    The taps backend ignores the tier."""
+    jm = make_jax_model(passes=1, seed=67)
+    tm = from_jax_model(jm)
+    cases = [(d, b) for d in ("bfloat16", "bfloat16_exact", "auto", "float32")
+             for b in (10, 16)] + [("int8", 8)]
+    for dtype, bits in cases:
+        eng = RaisrEngine(RaisrConfig(dtype=dtype, bits=bits, backend="pallas"), tm,
+                          device="cpu")
+        want = jax_tier(j_statics(jcfg.RaisrConfig(dtype=dtype, bits=bits), jm, "pallas"))
+        assert eng._statics.tier == want, (dtype, bits)
+        (bank,) = eng._filters
+        assert bank.filters.dtype == {"float32": torch.float32, "int8": torch.int16}.get(
+            want, torch.bfloat16), (dtype, bits)
+        assert (bank.pbias is not None) == (want == "pcenter")
+        assert (bank.inv_scale is not None) == (want == "int8")
+    # the tiers raisr_tpu names for these configs
+    assert [jax_tier(j_statics(jcfg.RaisrConfig(dtype=d, bits=b), jm, "pallas"))
+            for d, b in (("auto", 10), ("bfloat16_exact", 10), ("auto", 16),
+                         ("float32", 16), ("int8", 8))] == [
+        "pcenter", "bfloat16", "bfloat16", "float32", "int8"]
     # the taps backend ignores the tier
     assert RaisrEngine(RaisrConfig(dtype="int8", backend="reference"), tm,
                        device="cpu")._statics.tier == "float32"

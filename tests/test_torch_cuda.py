@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: held against their plain PyTorch
 versions, inside the engine's batched step, and under CUDA-graph capture:
-the fused pass (float32 and 8-bit bf16 tiers, 4 and 1 phases), the filter
-apply (apply_filters, 4 and 1 phases) and launch A alone (apply_filters_hash).
+the fused pass (every tier: float32, bf16 at 8 bits and p_split at 10/16,
+pcenter, int8; 4 and 1 phases), the filter apply (apply_filters, 4 and 1
+phases), launch A alone (apply_filters_hash) and the s8 matmul probe.
 
 Every test here needs a CUDA card and skips without one. This file imports
 no jax, so it also runs where jax is absent; tests/conftest.py imports jax,
@@ -19,8 +20,9 @@ from raisr_tpu_torch.model.gaussian import gaussian_kernel_1d, normalization_fac
 from raisr_tpu_torch.model.loader import FilterBank, RaisrModel
 from raisr_tpu_torch.ops.cuda import filter_kernel as flk
 from raisr_tpu_torch.ops.cuda import full_kernel as fk
+from raisr_tpu_torch.ops.cuda import probe_s16 as ps
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
-from torch_port_util import QCOH, QSTR, make_filters, require_cuda, smooth
+from torch_port_util import QCOH, QSTR, make_filters, require_cuda, smooth, smooth_frames
 
 pytestmark = pytest.mark.cuda
 
@@ -39,11 +41,12 @@ def _model(passes=2, seed=0, pixel_types=4) -> RaisrModel:
     ))
 
 
-def _kw(blending):
+def _kw(blending, bits=8):
+    cfg = RaisrConfig(bits=bits)
     return dict(
         k1d=tuple(float(v) for v in gaussian_kernel_1d(11)),
-        nf=normalization_factor(8), qstr=QSTR, qcoh=QCOH,
-        min_val=16, max_val=235, blending=blending,
+        nf=normalization_factor(bits), qstr=QSTR, qcoh=QCOH,
+        min_val=cfg.min_val, max_val=cfg.max_val, blending=blending,
     )
 
 
@@ -292,3 +295,106 @@ def test_25x_route(dtype):
     assert tuple(oy.shape) == (2, 100, 140)
     cpu = RaisrEngine(RaisrConfig(backend="pallas", **cfg), model, device="cpu")
     assert torch.equal(oy.cpu(), cpu.process_batch_device(y.cpu())[0])
+
+
+# -- the int8, pcenter and p_split tiers ---------------------------------------
+
+
+def _tier_bank(tier, pixel_types=4, seed=14):
+    """(bank, extras) of a tier, prepared on the card as the engine does."""
+    f = torch.tensor(make_filters(np.random.default_rng(seed), pixel_types),
+                     device=torch.device("cuda", torch.cuda.current_device()))
+    if tier == "int8":
+        q, inv_scale = fk.int8_bank(f)
+        return q, dict(inv_scale=inv_scale)
+    f16 = fk.round_bf16_error_diffused(f)
+    return f16, (dict(pbias=fk.pcenter_bias(f16)) if tier == "pcenter" else {})
+
+
+@pytest.mark.parametrize("blending", [1, 2])
+@pytest.mark.parametrize("tier,bits,pixel_types", [
+    ("int8", 8, 4), ("pcenter", 10, 4), ("bfloat16", 10, 4), ("bfloat16", 16, 4),
+    ("bfloat16", 16, 1),
+])
+@pytest.mark.parametrize("h,w", [(270, 481), (37, 64), (16, 16), (40, 9400)])
+def test_tier_kernel_matches_plain_version(tier, bits, pixel_types, blending, h, w):
+    """The int8 and pcenter kernels, and the bf16 kernel on 10/16-bit planes
+    (p_split), against their plain versions, bit for bit."""
+    dev = require_cuda()
+    img = torch.tensor(smooth(h, w, bits=bits, seed=h + w + 4), device=dev)
+    f, extra = _tier_bank(tier, pixel_types)
+    count = {"int8": "INT8_LAUNCHES", "pcenter": "PCENTER_LAUNCHES"}.get(
+        tier, "BF16_LAUNCHES" if pixel_types == 4 else "SINGLE_BF16_LAUNCHES")
+    before = getattr(fk, count)
+    kw = dict(_kw(blending, bits), pixel_types=pixel_types, **extra)
+    got = fk.raisr_pass_full(img, f, **kw)
+    want = fk.raisr_pass_full_reference(img, f, **kw)
+    torch.cuda.synchronize()
+    assert getattr(fk, count) == before + 1
+    assert torch.isfinite(got).all()
+    diff = (got - want).abs()
+    assert torch.equal(got, want), (int((diff > 0).sum()), float(diff.max()))
+
+
+@pytest.mark.parametrize("bits,dtype,ratio,passes,count", [
+    (8, "int8", 2.0, 2, "INT8_LAUNCHES"),
+    (10, "bfloat16", 2.0, 2, "PCENTER_LAUNCHES"),
+    (10, "bfloat16_exact", 2.0, 1, "BF16_LAUNCHES"),
+    (16, "bfloat16", 2.0, 1, "BF16_LAUNCHES"),
+    (16, "float32", 2.0, 1, "LAUNCHES"),
+    (10, "bfloat16", 1.5, 1, "SINGLE_BF16_LAUNCHES"),
+])
+def test_tier_device_step_and_graph_capture(bits, dtype, ratio, passes, count):
+    """Each tier through process_batch_device with uint8 or uint16 frames:
+    one launch per pass for the stack, counted in the tier's count, equal to
+    the plain passes (the CPU engine), eagerly and as a replayed CUDA graph.
+    uint16 tensors are compared through their int16 view."""
+    dev = require_cuda()
+    pt = 4 if ratio == 2.0 else 1
+    model = _model(passes=passes, seed=15, pixel_types=pt)
+    y_np = smooth_frames(2, 48, 64, bits=bits, seed=16)
+    y_np[:, 20, 30] = (1 << bits) - 1
+    u_np = smooth_frames(2, 24, 32, bits=bits, seed=18)
+    y, u = torch.tensor(y_np, device=dev), torch.tensor(u_np, device=dev)
+    cfg = dict(bits=bits, dtype=dtype, ratio=ratio, passes=passes)
+    eng = RaisrEngine(RaisrConfig(**cfg), model, device=dev)
+    names = tuple(fk._COUNTS.values())
+    for name in names:
+        setattr(fk, name, 0)
+    oy, ou, ov = eng.process_batch_device(y, u, u)
+    torch.cuda.synchronize()
+    assert {n: getattr(fk, n) for n in names} == {n: passes if n == count else 0 for n in names}
+
+    def bits16(t):
+        return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+    cpu = RaisrEngine(RaisrConfig(backend="pallas", **cfg), model, device="cpu")
+    cy, cu, _ = cpu.process_batch_device(torch.from_numpy(y_np), torch.from_numpy(u_np),
+                                         torch.from_numpy(u_np))
+    assert oy.dtype == cy.dtype == (torch.uint8 if bits == 8 else torch.uint16)
+    assert torch.equal(bits16(oy).cpu(), bits16(cy)), int((bits16(oy).cpu() != bits16(cy)).sum())
+    assert torch.equal(bits16(ou).cpu(), bits16(cu))
+    gy, gu, gv = _graph_step(eng, y, u)
+    assert torch.equal(bits16(gy), bits16(oy)) and torch.equal(bits16(gu), bits16(ou))
+    assert torch.equal(bits16(gv), bits16(ov))
+
+
+# -- the s8 matmul probe --------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(ps.M, ps.K, ps.N), (17, 5, 33), (1, 300, 2)])
+def test_s8_matmul_matches_plain_version_and_int_mm(m, k, n):
+    dev = require_cuda()
+    rng = np.random.default_rng(m + k + n)
+    a = torch.tensor(rng.integers(-128, 128, (m, k)).astype(np.int8), device=dev)
+    b = torch.tensor(rng.integers(-128, 128, (k, n)).astype(np.int8), device=dev)
+    a[0] = -128
+    b[:, 0] = -128
+    before = ps.LAUNCHES
+    got = ps.s8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, ps.s8_matmul_reference(a, b))
+    assert int(got[0, 0]) == 128 * 128 * k
+    if (m, k, n) == (ps.M, ps.K, ps.N):
+        assert torch.equal(got, torch._int_mm(a, b))

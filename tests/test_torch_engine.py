@@ -16,10 +16,11 @@ import torch
 
 import raisr_tpu.config as jcfg
 import raisr_tpu.engine as jengine
+from raisr_tpu.ops.pipeline import pass_statics as j_statics
 from raisr_tpu_torch import RaisrConfig, RaisrEngine, RaisrError
 from raisr_tpu_torch.engine import Frame, _resolve_backend
 from raisr_tpu_torch.model.loader import from_jax_model
-from torch_port_util import frac_and_median, make_jax_model
+from torch_port_util import frac_and_median, jax_tier, make_jax_model
 
 N, H, W = 2, 32, 48
 FUZZ_FRAC = 0.02
@@ -121,16 +122,25 @@ def test_backend_resolution_and_refusals(models):
         RaisrEngine(RaisrConfig(backend="xla"), tm, device="cpu")
     with pytest.raises(RaisrError, match="multi-device"):
         RaisrEngine(RaisrConfig(), tm, shard="data=2", device="cpu")
-    # the bf16 tier is served at 8 bits (auto resolves to it); 10-bit bf16
-    # (pcenter) is B4 and int8 is B3
+    # every tier is served, at the tier raisr_tpu's pass_statics gives: bf16
+    # at 8 bits (auto resolves to it), pcenter at 10 bits (its banks carry
+    # their bias) and int8 (int16 banks, 1/scale)
+    jm, _ = models
+
+    def tier(dtype, bits=8):
+        return jax_tier(j_statics(jcfg.RaisrConfig(dtype=dtype, bits=bits), jm, "pallas"))
+
     eng16 = RaisrEngine(RaisrConfig(backend="pallas", dtype="auto"), tm, device="cpu")
-    assert eng16._statics.tier == "bfloat16"
-    assert all(f.dtype == torch.bfloat16 for f in eng16._filters)
-    with pytest.raises(RaisrError, match="ROADMAP B4"):
-        RaisrEngine(RaisrConfig(backend="pallas", dtype="bfloat16", bits=10), tm,
-                    device="cpu")
-    with pytest.raises(RaisrError, match="ROADMAP B3"):
-        RaisrEngine(RaisrConfig(backend="pallas", dtype="int8"), tm, device="cpu")
+    assert eng16._statics.tier == tier("auto") == "bfloat16"
+    assert all(b.filters.dtype == torch.bfloat16 and b.pbias is None for b in eng16._filters)
+    eng10 = RaisrEngine(RaisrConfig(backend="pallas", dtype="bfloat16", bits=10), tm,
+                        device="cpu")
+    assert eng10._statics.tier == tier("bfloat16", 10) == "pcenter"
+    assert all(b.filters.dtype == torch.bfloat16 and b.pbias.dtype == torch.float32
+               for b in eng10._filters)
+    eng8 = RaisrEngine(RaisrConfig(backend="pallas", dtype="int8"), tm, device="cpu")
+    assert eng8._statics.tier == tier("int8") == "int8"
+    assert all(b.filters.dtype == torch.int16 and b.inv_scale > 0 for b in eng8._filters)
     # ratio 1.5 with a single-phase bank is served by the fused backend
     m15 = from_jax_model(make_jax_model(passes=1, seed=2, pixel_types=1))
     eng15 = RaisrEngine(RaisrConfig(ratio=1.5, backend="pallas"), m15, device="cpu")

@@ -32,7 +32,7 @@ from raisr_tpu_torch.ops.pipeline import (
     processed_col_end as t_col_end,
 )
 from raisr_tpu_torch.ops.resize import cheap_upscale as t_cheap
-from torch_port_util import QCOH, QSTR, make_jax_model, smooth
+from torch_port_util import QCOH, QSTR, jax_tier, make_jax_model, smooth
 
 
 def _t(a) -> torch.Tensor:
@@ -203,10 +203,11 @@ def test_finish_pass_bit_identical(blending):
 
 
 def test_pass_statics_tiers():
-    """The fused backend serves float32 at every depth and the bf16 tiers
-    (auto resolves to bfloat16) at 8 bits, raisr_tpu's mxu_passes=1 without
-    p_split; bf16 at 10/16 bits names B4 and int8 names B3. The taps backend
-    ignores the tier, as in raisr_tpu."""
+    """The fused backend serves every tier of raisr_tpu's pass_statics:
+    float32 at every depth (mxu_passes 2 and 3), bf16 at 8 bits
+    (mxu_passes=1), pcenter for bfloat16/auto at 10 bits, p_split (the bf16
+    bank) for bfloat16 at 16 bits and bfloat16_exact at 10/16, and int8. The
+    taps backend ignores the tier, as in raisr_tpu."""
     jm = make_jax_model(passes=1)
     tm = from_jax_model(jm)
     s = t_statics(RaisrConfig(), tm, "pallas")
@@ -215,24 +216,32 @@ def test_pass_statics_tiers():
     assert (s.min_val, s.max_val, s.blending, s.loop_margin) == (
         js.min_val, js.max_val, js.blending, js.loop_margin)
     assert s.tier == "float32"
-    for dtype in ("bfloat16", "bfloat16_exact", "auto"):
-        s = t_statics(RaisrConfig(dtype=dtype), tm, "pallas")
-        js = j_statics(JConfig(dtype=dtype), jm, "pallas")
-        assert s.tier == "bfloat16" and (js.mxu_passes, js.p_split) == (1, False)
-        for bits in (10, 16):
-            with pytest.raises(RaisrError, match="ROADMAP B4"):
-                t_statics(RaisrConfig(dtype=dtype, bits=bits), tm, "pallas")
-    with pytest.raises(RaisrError, match="ROADMAP B3"):
-        t_statics(RaisrConfig(dtype="int8"), tm, "pallas")
-    for dtype in ("bfloat16", "bfloat16_exact", "int8"):
-        s = t_statics(RaisrConfig(dtype=dtype), tm, "taps")
+    tiers = {}
+    cases = [(d, b) for d in ("float32", "bfloat16", "bfloat16_exact", "auto")
+             for b in (8, 10, 16)] + [("int8", 8)]
+    for dtype, bits in cases:
+        s = t_statics(RaisrConfig(dtype=dtype, bits=bits), tm, "pallas")
+        js = j_statics(JConfig(dtype=dtype, bits=bits), jm, "pallas")
+        assert s.tier == jax_tier(js), (dtype, bits, js)
+        tiers[dtype, bits] = s.tier
+    assert tiers == {
+        ("float32", 8): "float32", ("float32", 10): "float32", ("float32", 16): "float32",
+        ("bfloat16", 8): "bfloat16", ("bfloat16", 10): "pcenter", ("bfloat16", 16): "bfloat16",
+        ("bfloat16_exact", 8): "bfloat16", ("bfloat16_exact", 10): "bfloat16",
+        ("bfloat16_exact", 16): "bfloat16",
+        ("auto", 8): "bfloat16", ("auto", 10): "pcenter", ("auto", 16): "bfloat16",
+        ("int8", 8): "int8",
+    }
+    for dtype, bits in (("bfloat16", 8), ("bfloat16", 10), ("bfloat16_exact", 16), ("int8", 8)):
+        s = t_statics(RaisrConfig(dtype=dtype, bits=bits), tm, "taps")
         assert s.backend == "taps" and s.tier == "float32"
 
 
 def test_pass_statics_single_phase():
     """A 1.5x config with a single-phase bank: the fused backend takes it at
-    the float32 tier, with raisr_tpu's statics, and at the 8-bit bf16 tier;
-    bf16 at 10 bits names B4."""
+    the float32 tier, with raisr_tpu's statics, and at the bf16 tier, which
+    is p_split at 10/16 bits (raisr_tpu's single-phase kernel has no
+    pcenter)."""
     jm = make_jax_model(passes=1, pixel_types=1)
     tm = from_jax_model(jm)
     s = t_statics(RaisrConfig(ratio=1.5), tm, "pallas")
@@ -242,8 +251,10 @@ def test_pass_statics_single_phase():
     assert s.bank_edges == js.bank_edges
     for dtype in ("bfloat16", "bfloat16_exact"):
         assert t_statics(RaisrConfig(ratio=1.5, dtype=dtype), tm, "pallas").tier == "bfloat16"
-        with pytest.raises(RaisrError, match="B4"):
-            t_statics(RaisrConfig(ratio=1.5, dtype=dtype, bits=10), tm, "pallas")
+        for bits in (10, 16):
+            s = t_statics(RaisrConfig(ratio=1.5, dtype=dtype, bits=bits), tm, "pallas")
+            js = j_statics(JConfig(ratio=1.5, dtype=dtype, bits=bits), jm, "pallas")
+            assert s.tier == "bfloat16" and js.p_split and not js.pcenter
     # a 2x bank (4 pixel types) at ratio 1.5 has no fused form: raisr_tpu's
     # unfused filter kernel asserts ratio 2
     with pytest.raises(RaisrError, match="asserts pixel_types == 4 and ratio == 2"):
@@ -255,7 +266,12 @@ def test_pass_statics_single_phase():
     assert (s25.pixel_types, s25.use_pixel_type, s25.ratio_int) == (4, False, 2)
     f = torch.from_numpy(m4.banks[0].filters)
     (bank,) = t_banks(s25, (f,))
-    assert bank.shape == (216, 128) and bank.is_contiguous()
-    assert torch.equal(bank, f[0::4])
+    assert bank.filters.shape == (216, 128) and bank.filters.is_contiguous()
+    assert torch.equal(bank.filters, f[0::4])
     (bank16,) = t_banks(t_statics(RaisrConfig(ratio=2.5, dtype="auto"), m4, "pallas"), (f,))
-    assert bank16.dtype == torch.bfloat16 and bank16.shape == (216, 128)
+    assert bank16.filters.dtype == torch.bfloat16 and bank16.filters.shape == (216, 128)
+    # at 10 bits that route runs p_split; raisr_tpu asks for pcenter there
+    # but runs its unfused kernel without it (ROADMAP C10)
+    s25 = t_statics(RaisrConfig(ratio=2.5, dtype="bfloat16", bits=10), m4, "pallas")
+    js25 = j_statics(JConfig(ratio=2.5, dtype="bfloat16", bits=10), make_jax_model(1), "pallas")
+    assert s25.tier == "bfloat16" and js25.pcenter == 512.0 and not js25.use_pixel_type

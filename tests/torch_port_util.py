@@ -63,6 +63,26 @@ def smooth(h: int, w: int, bits: int = 8, seed: int = 0) -> np.ndarray:
     return np.floor(img * ((1 << bits) - 1)).astype(np.float32)
 
 
+def smooth_frames(n: int, h: int, w: int, bits: int = 8, seed: int = 0) -> np.ndarray:
+    """n frames of `smooth` content at 8, 10 or 16 bits, packed as the
+    engine takes them: uint8 at 8 bits, uint16 above."""
+    dtype = np.uint8 if bits == 8 else np.uint16
+    return np.stack([smooth(h, w, bits, seed + i) for i in range(n)]).astype(dtype)
+
+
+def jax_tier(js) -> str:
+    """The port's tier for raisr_tpu's pass statics (mxu_passes / p_split /
+    pcenter / i8): p_split is the bf16 bank against the exact patch, which
+    is the bf16 tier's arithmetic on the card."""
+    if js.i8:
+        return "int8"
+    if js.pcenter:
+        return "pcenter"
+    if js.p_split or js.mxu_passes == 1:
+        return "bfloat16"
+    return "float32"
+
+
 def frac_and_median(a, b) -> tuple[float, float]:
     """Share of differing pixels and the median absolute difference."""
     d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
