@@ -35,11 +35,16 @@ then the filter kernels, the bf16 tier and the 2.5x route:
  10. holds the filter apply (apply_filters: filter_apply_kernel<4> on pass 1's
      8736x3840 stack with the plain hash's buckets and on a 4K plane with
      uniform buckets in [-8, 232); <1> on the 1.5x path's 6552x2880 stack)
-     and launch A alone (apply_filters_hash, on the stack) against their plain
-     versions, and the staged pass (apply_filters, then the epilogue) against
-     the fused pass, bit for bit; times the plain hash, apply_filters,
-     apply_filters_hash and the fused pass, which splits launch A into hash
-     and gather;
+     and launch A alone (apply_filters_hash, on the stack and on a 4K
+     patchwork plane whose buckets spread over nearly all 216) against their
+     plain versions, and the staged pass (apply_filters, then the epilogue)
+     against the fused pass, bit for bit; times the plain hash,
+     apply_filters, apply_filters_hash and the fused pass on a smooth 4K
+     plane, the patchwork plane and the stack, prints the device time of
+     each kernel of one fused pass (launch A1 the hash, A2 the gather from
+     the resident bank, B the epilogue) from a torch.profiler trace, and
+     how many distinct bank rows and wavefronts A2's quarter-warps read on
+     each 4K plane;
  11. the 8-bit bf16 tier (dtype="auto"): the bf16 kernel against its plain
      version on a 4K plane (both blendings) and a 1620x2880 plane (1 phase);
      both paths through process_batch_device, eager and as a replayed CUDA
@@ -61,9 +66,11 @@ the difference to the float32 frames and the times printed):
      float32 and bfloat16 (p_split); 10-bit 1.5x 1-pass float32 and bfloat16
      (the single-phase p_split);
  15. the s8 x s8 -> s32 matmul probe (tools/probe_s16.py) at [864, 144] x
-     [144, 512], against the int64 product and torch._int_mm, timed beside it.
+     [144, 512], against the int64 product and torch._int_mm, each timed as
+     a CUDA graph of 100 calls.
 Each path is driven with the launch counts set to 0 just before it and read
-just after. The `kernels` line gives every kernel form its bound (bound_ms,
+just after. A time is one pair of CUDA events around back-to-back calls,
+over their count, so the device's pace and not the host's enqueue sets it. The `kernels` line gives every kernel form its bound (bound_ms,
 bound_by: the larger of its bytes over 3.35 TB/s and its dot's operations
 over the peak of their type) and library_ms, the time of one PyTorch call
 computing the same function where there is one (torch._int_mm for the
@@ -217,23 +224,99 @@ def make_planes(n: int, h: int, w: int, seed: int, device, bits: int = 8):
                        torch.uint8 if bits == 8 else torch.uint16)
 
 
+def make_patchwork(h: int, w: int, seed: int, device, blk: int = 16):
+    """An 8-bit plane of blk x blk blocks, each two crossed gratings of a
+    random angle, frequency and amplitude (log-uniform over three decades),
+    so that neighbouring pixels often fall in different buckets and the
+    hash's buckets spread over nearly all 216: the content on which launch
+    A2's bank reads are least often broadcasts. Integer-valued float32 in
+    [0, 255], made on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nby, nbx = -(-h // blk), -(-w // blk)
+
+    def draw(lo, hi):
+        return torch.tensor(rng.uniform(lo, hi, (nby, nbx, 1, 1)), device=device)
+
+    th, f = draw(0.0, np.pi), draw(0.1, 0.8)
+    a = 127.5 * torch.exp(draw(np.log(1e-3), 0.0))
+    b = a * draw(0.0, 1.0)
+    p1, p2 = draw(0.0, 6.0), draw(0.0, 6.0)
+    yy, xx = torch.meshgrid(torch.arange(blk, dtype=torch.float64, device=device),
+                            torch.arange(blk, dtype=torch.float64, device=device),
+                            indexing="ij")
+    v = (a * torch.sin(f * (torch.cos(th) * xx + torch.sin(th) * yy) + p1)
+         + b * torch.sin(f * (-torch.sin(th) * xx + torch.cos(th) * yy) + p2) + 127.5)
+    img = v.permute(0, 2, 1, 3).reshape(nby * blk, nbx * blk)[:h, :w]
+    return torch.clamp(torch.round(img), 0, 255).to(torch.float32).contiguous()
+
+
+def quarter_warp_rows(buckets) -> tuple[float, float]:
+    """What launch A2's bank reads cost on one plane's buckets: over every
+    quarter-warp (8 lanes: same-phase pixels of one row, 2 columns apart, in
+    each of the 4 phases; a ragged end dropped), the mean count of distinct
+    bank rows, and the mean count of shared-memory wavefronts a 16-byte read
+    takes, the most distinct rows that agree mod 8 (they fall in one bank
+    group; equal rows are broadcasts)."""
+    import torch
+
+    distinct, waves = [], []
+    for pr in (0, 1):
+        for pc in (0, 1):
+            sub = buckets[pr::2, pc::2]
+            n = sub.shape[1] // 8 * 8
+            s, _ = torch.sort(sub[:, :n].reshape(-1, 8).to(torch.int64), dim=1)
+            new = torch.ones_like(s, dtype=torch.bool)
+            new[:, 1:] = s[:, 1:] != s[:, :-1]
+            distinct.append(new.sum(1).to(torch.float64))
+            per_group = torch.stack([(new & (s % 8 == g)).sum(1) for g in range(8)], 1)
+            waves.append(per_group.amax(1).to(torch.float64))
+    return float(torch.cat(distinct).mean()), float(torch.cat(waves).mean())
+
+
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Median over `iters` of one call's device time, by CUDA events."""
+    """Device time of one call: one pair of CUDA events around `iters`
+    back-to-back calls (after `warmup` calls), over `iters`. The host
+    enqueues ahead of the device, so a call that takes longer on the device
+    than its wrapper takes on the host is timed at the device's pace."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 100, replays: int = 5) -> float:
+    """Device time of one call of a microsecond kernel: `calls` calls
+    captured in one CUDA graph, its replay timed by cuda_ms, over `calls`.
+    The host's enqueue (the wrapper's checks, allocation and launch) is
+    left out of the timed window."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, replays, 1) / calls
+
+
+def zero(counts: dict) -> None:
+    """Sets every launch count of a wrapper's dict to 0."""
+    counts.update(dict.fromkeys(counts, 0))
 
 
 def _union_us(spans) -> float:
@@ -250,7 +333,8 @@ def _union_us(spans) -> float:
 
 
 def _kernel_group(name: str) -> str:
-    for key, label in (("hash_filter_kernel", "launch A hash_filter_kernel"),
+    for key, label in (("hash_bucket_kernel", "launch A1 hash_bucket_kernel"),
+                       ("gather_resident_kernel", "launch A2 gather_resident_kernel"),
                        ("epilogue_kernel", "launch B epilogue_kernel"),
                        ("CatArrayBatchedCopy", "PyTorch cat"),
                        ("gather", "PyTorch gather (non-2x resize)"),
@@ -260,19 +344,14 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_steps(step, out_dir: str, card: str, steps: int = 10,
-                  phase: int = 5, name: str = "step_trace.json") -> None:
-    """Phase 5 (and 9): trace `steps` serving steps; print the device time
-    per step by kernel group and the busy share: the union of the kernels'
-    device intervals over the window from the first step's start on the host
-    to the last kernel's end."""
+def trace(step, steps: int, path: str) -> tuple[list, list]:
+    """Trace `steps` calls of `step` with torch.profiler into `path`;
+    returns the device kernels' events and the calls' host spans."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     step()
     torch.cuda.synchronize()
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, name)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             with record_function("serving_step"):
@@ -283,15 +362,43 @@ def profile_steps(step, out_dir: str, card: str, steps: int = 10,
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     marks = [e for e in events if e.get("name") == "serving_step" and "dur" in e]
+    return kernels, marks
+
+
+def kernel_groups(kernels) -> dict[str, float]:
+    """Device microseconds by kernel group."""
+    groups: dict[str, float] = {}
+    for e in kernels:
+        g = _kernel_group(e["name"])
+        groups[g] = groups.get(g, 0.0) + float(e["dur"])
+    return groups
+
+
+def pass_breakdown(fn, calls: int = 10) -> str:
+    """Device ms per call of each kernel of one fused pass (A1, A2, B), from
+    a torch.profiler trace of `calls` calls."""
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels, _ = trace(fn, calls, os.path.join(tmp, "pass.json"))
+    groups = kernel_groups(kernels)
+    return ", ".join(f"{g.split()[1]} {us / calls / 1000:.4f}" for g, us in
+                     sorted(groups.items()) if g.startswith("launch"))
+
+
+def profile_steps(step, out_dir: str, card: str, steps: int = 10,
+                  phase: int = 5, name: str = "step_trace.json") -> None:
+    """Phase 5 (and 9): trace `steps` serving steps; print the device time
+    per step by kernel group and the busy share: the union of the kernels'
+    device intervals over the window from the first step's start on the host
+    to the last kernel's end."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, name)
+    kernels, marks = trace(step, steps, path)
     if not kernels or not marks:
         raise SystemExit(f"phase {phase} failed: the trace holds no device kernels")
     t0 = min(float(e["ts"]) for e in marks)
     t1 = max(float(e["ts"]) + float(e["dur"]) for e in kernels)
     busy = _union_us((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels)
-    groups: dict[str, float] = {}
-    for e in kernels:
-        g = _kernel_group(e["name"])
-        groups[g] = groups.get(g, 0.0) + float(e["dur"])
+    groups = kernel_groups(kernels)
     total = sum(groups.values())
     print(f"phase {phase} profile on {card}: {steps} steps, {len(kernels) / steps:g} "
           f"kernels per step, trace {path}")
@@ -347,10 +454,10 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
     # -- phase 7: the 1.5x path ------------------------------------------------
     engine = RaisrEngine(cfg, model, device=dev)
     torch.cuda.synchronize()
-    fk.LAUNCHES = fk.SINGLE_LAUNCHES = 0
+    zero(fk.LAUNCHES)
     oy, ou, ov = engine.process_batch_device(y, u, v)
     torch.cuda.synchronize()
-    launches = fk.SINGLE_LAUNCHES
+    launches = fk.LAUNCHES[("float32", 1)]
     ok_shapes = (
         tuple(oy.shape) == (N_FRAMES, out_h, out_w)
         and tuple(ou.shape) == tuple(ov.shape) == (N_FRAMES, ch, cw)
@@ -359,8 +466,8 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
     )
     print(f"phase 7 1.5x path: Y {tuple(oy.shape)} U/V {tuple(ou.shape)} {oy.dtype} "
           f"on {oy.device}, single-phase kernel passes launched {launches}, "
-          f"4-phase {fk.LAUNCHES}")
-    if not ok_shapes or launches != PASSES_15X or fk.LAUNCHES:
+          f"all {fk.LAUNCHES}")
+    if not ok_shapes or launches != PASSES_15X or sum(fk.LAUNCHES.values()) != launches:
         raise SystemExit("phase 7 failed: shapes, dtype, device or launch count")
     if not torch.equal(oy, stack_y.to(torch.uint8)):
         raise SystemExit("phase 7 failed: Y differs from phase 6's stacked launch")
@@ -442,9 +549,10 @@ def kernel_row(name: str, source: str, replaces: str, launches: int, errs,
 def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
     """Phase 10: the filter apply (apply_filters, both phase counts) and
     launch A alone (apply_filters_hash) on the 2x and 1.5x paths' own planes,
-    each held against its plain version, bit for bit; the staged pass
-    (apply_filters, then the epilogue) against the fused pass; then times
-    that split launch A into hash and gather. Returns three `kernels` rows."""
+    each held against its plain version, bit for bit (launch A also on a
+    patchwork plane); the staged pass (apply_filters, then the epilogue)
+    against the fused pass; then times that split launch A into hash and
+    gather, on smooth and patchwork content. Returns three `kernels` rows."""
     import torch
 
     from raisr_tpu_torch.ops import pipeline
@@ -471,6 +579,9 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
     rand = torch.randint(-8, 232, cheap.shape, generator=gen, device=dev,
                          dtype=torch.int32)
     buckets = flk.hash_buckets_reference(cheap, **hkw)
+    # the content on which A2's bank reads are least often broadcasts
+    patch = make_patchwork(out_h, out_w, 10, dev)
+    buckets_patch = flk.hash_buckets_reference(patch, **hkw)
     buckets_stack = flk.hash_buckets_reference(stack, **hkw)
     buckets15 = flk.hash_buckets_reference(stack15, **hkw15)
     torch.cuda.synchronize()
@@ -506,6 +617,10 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
         raise SystemExit("phase 10 failed: an out-of-range bucket gave a non-zero raw")
     errsh.append(hold("10 apply_filters_hash", f"the {tuple(stack.shape)} stack", raw_hash,
                       flk.apply_filters_hash_reference(stack, f, **hkw)))
+    errsh.append(hold("10 apply_filters_hash", f"a {out_h}x{out_w} patchwork plane "
+                      f"({int(torch.unique(buckets_patch).numel())} buckets)",
+                      flk.apply_filters_hash(patch, f, **hkw),
+                      flk.apply_filters_hash_reference(patch, f, **hkw)))
     errs1.append(hold("10 apply_filters single-phase", f"real buckets, the "
                       f"{tuple(stack15.shape)} stack", raw15,
                       flk.apply_filters_reference(stack15, buckets15, f15, pixel_types=1)))
@@ -523,7 +638,8 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
 
     # times: launch A split into hash and gather, each against its plain version
     t = {}
-    for name, x, b in (("plane", cheap, buckets), ("stack", stack, buckets_stack)):
+    for name, x, b in (("plane", cheap, buckets), ("patchwork", patch, buckets_patch),
+                       ("stack", stack, buckets_stack)):
         t[name] = dict(
             hash_plain=cuda_ms(lambda: flk.hash_buckets_reference(x, **hkw), 3),
             apply=cuda_ms(lambda: flk.apply_filters(x, b, f), 20, 3),
@@ -541,13 +657,19 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
     ms15_plain = cuda_ms(lambda: flk.apply_filters_reference(cheap15, b15, f15, pixel_types=1), 3)
     ms15_stack = cuda_ms(lambda: flk.apply_filters(stack15, buckets15, f15, pixel_types=1,
                                                    ratio=1), 10, 2)
-    for name, shape in (("plane", cheap.shape), ("stack", stack.shape)):
+    for name, x in (("plane", cheap), ("patchwork", patch), ("stack", stack)):
         r = t[name]
-        print(f"phase 10 times on {card}, {tuple(shape)}: plain hash {r['hash_plain']:.3f} ms; "
+        print(f"phase 10 times on {card}, {name} {tuple(x.shape)}: plain hash "
+              f"{r['hash_plain']:.3f} ms; "
               f"apply_filters {r['apply']:.3f} ms (plain {r['apply_plain']:.3f}); "
               f"apply_filters_hash {r['hash_apply']:.3f} ms (plain {r['hash_apply_plain']:.3f}); "
-              f"fused pass {r['fused']:.3f} ms (plain {r['fused_plain']:.3f}); gather share "
-              f"of launch A {100 * r['apply'] / r['hash_apply']:.1f}%")
+              f"fused pass {r['fused']:.3f} ms (plain {r['fused_plain']:.3f}); the fused "
+              f"pass's kernels (torch.profiler), ms: "
+              f"{pass_breakdown(lambda: fk.raisr_pass_full(x, f, **pkw))}")
+    for name, b in (("plane", buckets), ("patchwork", buckets_patch)):
+        rows, waves = quarter_warp_rows(b)
+        print(f"phase 10 A2 bank reads on the {name}: {int(torch.unique(b).numel())} buckets, "
+              f"{rows:.3f} distinct rows and {waves:.3f} wavefronts a quarter-warp (of 8)")
     print(f"phase 10 times on {card}: apply_filters with uniform buckets in [-8, 232) "
           f"{t['plane']['apply_rand']:.3f} ms (plain {t['plane']['apply_rand_plain']:.3f}); "
           f"single-phase apply_filters {tuple(cheap15.shape)} {ms15:.3f} ms (plain "
@@ -594,7 +716,7 @@ def run_bf16(y, u, v, dev, card: str, model, kw: dict, c2: dict, c15: dict,
         banks = [fk.round_bf16_error_diffused(b) for b in banks32]
         edges = [dict(qstr=tuple(float(q) for q in b.qstr),
                       qcoh=tuple(float(q) for q in b.qcoh)) for b in mdl.banks]
-        pk = dict(bkw, **edges[0], pixel_types=pt)
+        pk = dict(bkw, **edges[0], pixel_types=pt, tier="bfloat16")
         errs = []
         for blending in (1, 2):
             errs.append(hold(f"11 bf16 {tag} kernel", f"blending {blending}, one "
@@ -604,21 +726,19 @@ def run_bf16(y, u, v, dev, card: str, model, kw: dict, c2: dict, c15: dict,
                                                           **dict(pk, blending=blending))))
         engine = RaisrEngine(cfg, mdl, device=dev)
         torch.cuda.synchronize()
-        fk.LAUNCHES = fk.SINGLE_LAUNCHES = fk.BF16_LAUNCHES = fk.SINGLE_BF16_LAUNCHES = 0
+        zero(fk.LAUNCHES)
         oy, ou, ov = engine.process_batch_device(y, u, v)
         torch.cuda.synchronize()
-        counts = (fk.LAUNCHES, fk.SINGLE_LAUNCHES, fk.BF16_LAUNCHES, fk.SINGLE_BF16_LAUNCHES)
-        launches = counts[3] if single else counts[2]
+        launches = fk.LAUNCHES[("bfloat16", pt)]
         print(f"phase 11 bf16 {tag} path (dtype auto): Y {tuple(oy.shape)}, launches "
-              f"f32 {counts[0]}/{counts[1]}, bf16 {counts[2]}/{counts[3]} (4-phase/1-phase)")
-        if launches != len(mdl.banks) or sum(counts) != launches:
+              f"{fk.LAUNCHES}")
+        if launches != len(mdl.banks) or sum(fk.LAUNCHES.values()) != launches:
             raise SystemExit(f"phase 11 failed: {tag} launch count")
         out_h, out_w = oy.shape[1:]
         for i in range(N_FRAMES):
             x = cheap_upscale(y[i].to(torch.float32), out_h, out_w, 8)
             for p, bank in enumerate(banks):
-                x = fk.raisr_pass_full_reference(x, bank, **dict(bkw, **edges[p], blending=2,
-                                                                  pixel_types=pt))
+                x = fk.raisr_pass_full_reference(x, bank, **dict(pk, **edges[p], blending=2))
             frac, med, mx = diff_stats(oy[i], x)
             f_frac, _, f_mx = diff_stats(oy[i], f32_oy[i])
             print(f"phase 11 bf16 {tag} Y frame {i}: vs plain bf16 passes differing "
@@ -633,16 +753,18 @@ def run_bf16(y, u, v, dev, card: str, model, kw: dict, c2: dict, c15: dict,
         if not same:
             raise SystemExit(f"phase 11 failed: {tag} graph replay")
         dkw = dict(pk, blending=2)
-        ms32 = cuda_ms(lambda: fk.raisr_pass_full(plane, banks32[0], **dkw), 20, 3)
+        fkw = dict(dkw, tier="float32")
+        ms32 = cuda_ms(lambda: fk.raisr_pass_full(plane, banks32[0], **fkw), 20, 3)
         ms16 = cuda_ms(lambda: fk.raisr_pass_full(plane, banks[0], **dkw), 20, 3)
         ms16b = cuda_ms(lambda: fk.raisr_pass_full(plane, banks[0], **dkw), 20, 3)
-        ms32b = cuda_ms(lambda: fk.raisr_pass_full(plane, banks32[0], **dkw), 20, 3)
+        ms32b = cuda_ms(lambda: fk.raisr_pass_full(plane, banks32[0], **fkw), 20, 3)
         ms_plain = cuda_ms(lambda: fk.raisr_pass_full_reference(plane, banks[0], **dkw), 3)
         ms_step = cuda_ms(lambda: engine.process_batch_device(y, u, v), 10, 2)
         ms_graph = cuda_ms(graph.replay, 10, 2)
         print(f"phase 11 times on {card}, {tag}: fused pass {tuple(plane.shape)} f32 / bf16 / "
-              f"bf16 / f32 {ms32:.3f} / {ms16:.3f} / {ms16b:.3f} / {ms32b:.3f} ms, bf16 plain "
-              f"{ms_plain:.3f} ms; bf16 serving step {N_FRAMES} frames eager {ms_step:.3f} ms "
+              f"bf16 / f32 {ms32:.3f} / {ms16:.3f} / {ms16b:.3f} / {ms32b:.3f} ms (bf16 kernels, "
+              f"ms: {pass_breakdown(lambda: fk.raisr_pass_full(plane, banks[0], **dkw))}), "
+              f"bf16 plain {ms_plain:.3f} ms; bf16 serving step {N_FRAMES} frames eager {ms_step:.3f} ms "
               f"= {N_FRAMES * 1000 / ms_step:.2f} frames/s, graph {ms_graph:.3f} ms = "
               f"{N_FRAMES * 1000 / ms_graph:.2f} frames/s; float32 step eager {f32_ms:.3f} ms "
               f"= {N_FRAMES * 1000 / f32_ms:.2f} frames/s")
@@ -675,13 +797,12 @@ def run_25x(y, dev, card: str, kw: dict) -> None:
     engine = RaisrEngine(cfg, model, device=dev)
     frame = y[:1]
     torch.cuda.synchronize()
-    fk.LAUNCHES = fk.SINGLE_LAUNCHES = fk.BF16_LAUNCHES = fk.SINGLE_BF16_LAUNCHES = 0
+    zero(fk.LAUNCHES)
     oy = engine.process_batch_device(frame)[0]
     torch.cuda.synchronize()
-    counts = (fk.LAUNCHES, fk.SINGLE_LAUNCHES, fk.BF16_LAUNCHES, fk.SINGLE_BF16_LAUNCHES)
-    print(f"phase 12 2.5x with a 4-phase bank: Y {tuple(oy.shape)}, launches f32 "
-          f"{counts[0]}/{counts[1]}, bf16 {counts[2]}/{counts[3]} (4-phase/1-phase)")
-    if tuple(oy.shape) != (1, out_h, out_w) or counts != (0, 1, 0, 0):
+    print(f"phase 12 2.5x with a 4-phase bank: Y {tuple(oy.shape)}, launches {fk.LAUNCHES}")
+    if (tuple(oy.shape) != (1, out_h, out_w)
+            or fk.LAUNCHES != {k: int(k == ("float32", 1)) for k in fk.LAUNCHES}):
         raise SystemExit("phase 12 failed: shape or launch count")
     bank = model.banks[0]
     phase0 = torch.tensor(bank.filters[0::4], device=dev).contiguous()
@@ -728,12 +849,10 @@ def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None
     engine = RaisrEngine(cfg, model, device=dev)
     tier, bits, passes = engine._statics.tier, cfg.bits, cfg.passes
     pt = 4 if cfg.use_pixel_type else 1
-    count_names = tuple(fk._COUNTS.values())
-    count = fk._COUNTS[(tier, pt)]
     out_h, out_w = cfg.output_size(LR_H, LR_W)
     f32 = [torch.tensor(b.filters, device=dev) for b in model.banks]
     # each pass's bank at the tier, and its extras (pcenter bias, int8 1/scale)
-    banks = [(b.filters, dict(pbias=b.pbias, inv_scale=b.inv_scale))
+    banks = [(b.filters, dict(tier=tier, pbias=b.pbias, inv_scale=b.inv_scale))
              for b in pipeline.pass_banks(engine._statics, f32)]
     k1d = tuple(float(x) for x in gaussian_kernel_1d(11))
 
@@ -762,21 +881,20 @@ def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None
     else:
         x = cheap_upscale_stacked(stack_lr, N_FRAMES, LR_H, lr_pad, out_h, hr_pad, out_w, bits)
     for p, (bank, extra) in enumerate(banks):
-        skw = pk(p, blending=2, frame_h=out_h, frame_pad=hr_pad, **extra)
-        got = fk.raisr_pass_full(x, bank, **skw)
+        skw = dict(blending=2, frame_h=out_h, frame_pad=hr_pad)
+        got = fk.raisr_pass_full(x, bank, **pk(p, **skw, **extra))
         errs.append(hold(label, f"pass {p + 1} over the {N_FRAMES}-frame stack "
                          f"{tuple(x.shape)} (frame_h {out_h}, frame_pad {hr_pad})",
-                         got, fk.raisr_pass_full_reference(x, bank, **skw)))
+                         got, fk.raisr_pass_full_reference(x, bank, **pk(p, **skw, **extra))))
         x = got
     stack_y = x.reshape(N_FRAMES, out_h + 2 * hr_pad, out_w)[:, hr_pad: hr_pad + out_h]
 
     torch.cuda.synchronize()
-    for name in count_names:
-        setattr(fk, name, 0)
+    zero(fk.LAUNCHES)
     oy, ou, ov = engine.process_batch_device(y, u, v)
     torch.cuda.synchronize()
-    counts = {name: getattr(fk, name) for name in count_names}
-    launches = counts[count]
+    counts = dict(fk.LAUNCHES)
+    launches = counts[(tier, pt)]
     print(f"phase {phase} {tag} path ({cfg.dtype}, {bits} bits, tier {tier}): Y "
           f"{tuple(oy.shape)} {oy.dtype}, launches {counts}")
     ch, cw = cfg.output_size(LR_H // 2, LR_W // 2)
@@ -899,13 +1017,17 @@ def run_probe(dev, card: str) -> dict:
     print(f"phase 15 s8 matmul equals torch._int_mm: {lib_same}")
     if not lib_same:
         raise SystemExit("phase 15 failed: against torch._int_mm")
-    ms = cuda_ms(lambda: ps.s8_matmul(a, b), 50, 5)
-    lib = cuda_ms(lambda: torch._int_mm(a, b), 50, 5)
-    lib_b = cuda_ms(lambda: torch._int_mm(a, b), 50, 5)
-    ms_b = cuda_ms(lambda: ps.s8_matmul(a, b), 50, 5)
+    # each a CUDA graph of 100 calls, replayed; the host's pace alongside
+    ms = graph_ms(lambda: ps.s8_matmul(a, b))
+    lib = graph_ms(lambda: torch._int_mm(a, b))
+    lib_b = graph_ms(lambda: torch._int_mm(a, b))
+    ms_b = graph_ms(lambda: ps.s8_matmul(a, b))
+    host = cuda_ms(lambda: ps.s8_matmul(a, b), 100, 5)
+    host_lib = cuda_ms(lambda: torch._int_mm(a, b), 100, 5)
     plain = cuda_ms(lambda: ps.s8_matmul_reference(a, b), 5, 1)
     print(f"phase 15 times on {card}: s8_matmul / torch._int_mm / torch._int_mm / s8_matmul "
-          f"{ms:.4f} / {lib:.4f} / {lib_b:.4f} / {ms_b:.4f} ms, plain {plain:.3f} ms")
+          f"{ms:.5f} / {lib:.5f} / {lib_b:.5f} / {ms_b:.5f} ms (a CUDA graph of 100 calls), "
+          f"back-to-back eager calls {host:.5f} / {host_lib:.5f} ms, plain {plain:.3f} ms")
     return kernel_row("s8_matmul", "raisr_tpu_torch/csrc/probe_s16.cu", "tools/probe_s16.py:44",
                       launches, errs, ms, plain,
                       bound(nbytes(a, b), nbytes(c), 2 * ps.M * ps.K * ps.N, "int8"),
@@ -1011,12 +1133,12 @@ def main() -> int:
     # -- phase 2: the main path ----------------------------------------------
     engine = RaisrEngine(cfg, model, device=dev)
     torch.cuda.synchronize()
-    fk.LAUNCHES = fk.SINGLE_LAUNCHES = 0
+    zero(fk.LAUNCHES)
     oy, ou, ov = engine.process_batch_device(y, u, v)
     torch.cuda.synchronize()
-    launches = fk.LAUNCHES
-    if fk.SINGLE_LAUNCHES:
-        raise SystemExit("phase 2 failed: the 2x path launched the single-phase kernel")
+    launches = fk.LAUNCHES[("float32", 4)]
+    if sum(fk.LAUNCHES.values()) != launches:
+        raise SystemExit(f"phase 2 failed: the 2x path launched another form {fk.LAUNCHES}")
     ok_shapes = (
         tuple(oy.shape) == (N_FRAMES, out_h, out_w)
         and tuple(ou.shape) == tuple(ov.shape) == (N_FRAMES, LR_H, LR_W)

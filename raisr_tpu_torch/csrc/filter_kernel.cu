@@ -7,7 +7,7 @@
 //                  JAX's pt_idx;
 //   _single_kernel 1 phase: row bucket.
 // The phase count is a template parameter (kPhases) of one kernel, as in
-// full_kernel.cu's hash_filter_kernel. A bucket outside [0, n_buckets) gives
+// full_kernel.cu's gather_resident_kernel. A bucket outside [0, n_buckets) gives
 // raw 0 and reads nothing, as the TPU kernels' select over 224 zero-padded
 // bank rows does (_tree_select). Patch reads outside the plane are zero.
 //
@@ -15,13 +15,17 @@
 // select one. Here one block per 32x8 output tile stages the cheap tile with
 // its 5-pixel halo in shared memory; each thread loads its bucket (coalesced)
 // and gathers its filter row through 16-byte read-only loads, in
-// gather_dot (raisr_common.cuh), the very loop of launch A, so the two sum the
-// taps in the same order and agree bit for bit with the plain PyTorch version
+// gather_dot (raisr_common.cuh): dot_rows, the very loop of launch A's gather
+// (which reads its rows from shared memory instead), so the two sum the taps
+// in the same order and agree bit for bit with the plain PyTorch version
 // (ops/cuda/filter_kernel.py apply_filters_reference).
 //
-// What bounds it on an H100: as launch A, the gather of 484 B of filter per
-// pixel from L1/L2 (the 442 KB bank stays in L2); the plane and bucket traffic
-// is 12 B per pixel. Without the hash, this kernel measures the gather alone.
+// What bounds it on an H100: the gather of 484 B of filter per pixel from
+// L1/L2 (the 442 KB bank stays in L2), 31 16-byte loads a pixel that split
+// into up to 32 sectors a warp; the plane and bucket traffic is 12 B per
+// pixel. It is what launch A's gather was before the bank moved into shared
+// memory; moving this kernel onto the resident bank is queued
+// (ROADMAP "Next slices" 1).
 
 #include <cuda_runtime.h>
 

@@ -6,9 +6,9 @@
 //   _full_kernel_single (entered through raisr_pass_pallas_full_single), 1.
 // They differ only in how a pixel picks its filter row: bank row
 // bucket * 4 + phase for a 4-phase bank, bucket for a single-phase one. Here
-// that is a template parameter of one kernel (kPhases), not a second copy.
-// The tier is the other (kTier), one case of the same kernel each; the host
-// prepares each tier's bank once (ops/cuda/full_kernel.py):
+// that is a template parameter (kPhases), not a second copy. The tier is the
+// other (kTier), one case of the same kernel each; the host prepares each
+// tier's bank once (ops/cuda/full_kernel.py):
 //   kF32      float32 bank: the TPU's float32 grade (mxu_passes 2 and 3, so
 //             8, 10 and 16 bits alike).
 //   kBF16     bfloat16 bank rounded with error diffusion along the taps
@@ -20,16 +20,15 @@
 //   kPCenter  the 10-bit bf16 tier (pcenter=512): the same bf16 bank against
 //             the patch bf16(P - 512) (round to nearest even), then one add of
 //             the row's float32 bias 512 * sum(F') (pcenter_bias) after tap
-//             120. The hash reads the exact plane, so the centred values are a
-//             second staged tile.
+//             120.
 //   kInt8     the int8 tier (8-bit content): integer taps on the int16 grid
 //             (int8_bank, as _round_int_error_diffused with the bank's
 //             power-of-two scale), an exact int32 dot with the unshifted
-//             integer patch (a second staged tile of ints), rounded to float32
-//             and times the float32 1/scale. The TPU's -128 patch shift and
-//             its 128 * rowsum bias cancel, so neither is needed here; the
-//             power-of-two multiply after the int -> float rounding is JAX's
-//             (gt).astype(f32) * inv exactly.
+//             integer patch, rounded to float32 and times the float32
+//             1/scale. The TPU's -128 patch shift and its 128 * rowsum bias
+//             cancel, so neither is needed here; the power-of-two multiply
+//             after the int -> float rounding is JAX's (gt).astype(f32) * inv
+//             exactly.
 // One pass takes the integer-valued cheap-upscaled plane and returns the
 // integer-valued pass output:
 //   gradients -> separable 11-tap Gaussian structure tensor * nf ->
@@ -41,30 +40,68 @@
 // ones included) and row stripes (row0/zone_h), as in the TPU kernels.
 //
 // The TPU kernels multiply every patch against all 216 buckets on the MXU and
-// select one, because a TPU has no per-lane gather. Here each thread gathers
-// its own bucket's filter row and runs plain multiply-adds (float32; int32 at
-// the int8 tier) on the natural [H, W] plane, in two launches:
-//   A (hash_filter_kernel): one block per 32x8 output tile stages the cheap
+// select one, because a TPU has no per-lane gather. Here each pixel reads its
+// own bucket's filter row and runs plain multiply-adds (float32; int32 at the
+// int8 tier) on the natural [H, W] plane. A pass is three CUDA launches on
+// one stream, counted as one pass by the wrapper; launch A, the hash and the
+// filter, is two of them:
+//   A1 (hash_bucket_kernel): one block per 32x32 output tile stages the cheap
 //     tile with a 6-pixel halo in shared memory (zero outside the plane),
 //     builds the gradient products and the vertical then horizontal tensor
-//     sums there, hashes, and writes the raw filter output (the gather-dot is
-//     gather_dot of raisr_common.cuh, shared with filter_kernel.cu). On its
-//     own, launch A is also the port of the TPU's hash + filter kernel
-//     _band_kernel_fused (filter_kernel.py, apply_filters_hash_pallas).
+//     sums, hashes, and writes each pixel's bucket as one byte.
+//   A2 (gather_resident_kernel<kPhases, kTier>): persistent blocks, each
+//     serving ONE pixel phase with that phase's bank rows resident in shared
+//     memory, walk over tiles of same-phase pixels and write the raw filter
+//     output (dot_rows of raisr_common.cuh).
 //   B (epilogue_kernel): reject, zones, census blend and rounding per pixel,
 //     rebuilding each neighbour's HR value from its raw and cheap values.
+// A1 and A2 on their own are also the port of the TPU's hash + filter kernel
+// _band_kernel_fused (filter_kernel.py, apply_filters_hash_pallas).
 //
-// What bounds it on an H100: launch A gathers about 484 B of filter (121 taps)
-// per pixel (242 B at the bf16, pcenter and int8 tiers) and does 121
-// multiplies and adds, over 8.3 M pixels per 4K plane.
-// The bank (864 x 128 float32, 442 KB; single-phase 216 x 128, 110.6 KB;
-// half of each at the 16-bit tiers)
-// stays resident in the 50 MB L2 and is read through the read-only path in
-// 16-byte loads; the patch comes from shared memory. Later work: a
-// single-phase bank (110.6 KB) fits whole in the 227 KB of shared memory a
-// block can use, so staging it there is the first redesign to try for the
-// 1.5x kernel (a 4-phase bank needs one phase at a time, 105 KB); fusing the
-// two launches and wgmma come after.
+// What bounds launch A on an H100, and what the design does about it. It
+// moves few bytes (the plane in twice, a byte of bucket out and back, the
+// raw plane out: ~116 MB a 4K plane, ~35 us at 3.35 TB/s) and does
+// ~400 float operations a pixel, so neither bounds it. A2 waits on shared
+// memory (one 128-byte wavefront per SM per clock); A1 on the issue of its
+// instructions and the latency of the hash's IEEE divisions and square
+// roots:
+//   - The filter row. A pixel reads 121 taps: 31 16-byte loads at float32,
+//     16 at 16 bits. Gathered from global memory, the 32 lanes of a warp read
+//     up to 32 different rows, so each warp-wide load splits into up to 32
+//     sectors from L2 (the whole bank, 442 KB at float32, does not stay in
+//     L1): ~89% of the pass when launch A was one kernel gathering so. A2
+//     stages the rows of one phase (216 rows; a single-phase bank whole) ONCE
+//     per persistent block with cp.async, re-strided on the way: 107 KB at
+//     float32, 59 KB at 16 bits. A block then reads them from shared memory,
+//     where a 16-byte load is served a quarter-warp (8 lanes) per wavefront
+//     and lanes on one row are broadcasts. The row stride is 124 floats (31
+//     groups) or 136 16-bit taps (17 groups), odd numbers of 16-byte groups,
+//     so row b's group q sits in bank group (q - b) mod 8 (float32) or
+//     (q + b) mod 8 (16 bits): 8 lanes on 8 different rows conflict only
+//     where their rows agree mod 8.
+//   - The patch: scalar shared-memory reads. A block serves one phase, so a
+//     warp's lanes are same-phase pixels two columns apart; the staged tile
+//     is stored split by column parity (two planes), so lane j of any tap
+//     reads word j + const of one plane: conflict-free. A thread takes two
+//     same-phase pixels one phase row apart, whose patches share 9 of their
+//     11 rows, and reads each shared value once: 143 reads for the two
+//     pixels, not 242.
+//   - The hash is needed at every pixel, and its scratch (gradient products
+//     and tensor sums, ~37 KB a 256-pixel tile) does not fit beside a float32
+//     phase bank for more than two tiles in flight; a block serving one phase
+//     would also build the gradient products of every pixel four times and
+//     the vertical sums twice. So launch A is split: A1 hashes every pixel
+//     once and hands A2 a byte a pixel (8.3 MB a 4K plane, written once and
+//     read once). A1 runs its sums down a column and along a row with each
+//     product feeding the live sums of its taps, so few values stay live and
+//     four blocks fit on an SM to hide the hash's latency.
+//   - A2's blocks: 4 groups of 256 threads (1024 threads), one tile of 16 x 32
+//     same-phase pixels a group at a time; the groups sync on their own named
+//     barriers, so one group waits while the others compute, and each group
+//     copies its next tile into a second buffer with cp.async during the dot
+//     of the current one. One block a SM, no more than the tiles need.
+// The host keeps the bank as [rows, 128]; A2's staging copies make the
+// phase-major, re-strided layout the card reads.
 //
 // Rounding: every sum and product is rounded on its own, in the order of the
 // plain PyTorch version (raisr_tpu_torch/ops/cuda/full_kernel.py
@@ -75,6 +112,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
 #include <cstring>
 
 #include "raisr_common.cuh"
@@ -89,19 +128,28 @@ enum class Tier : int { kF32 = 0, kBF16 = 1, kPCenter = 2, kInt8 = 3 };
 // the pcenter tier's patch centre (raisr_tpu's pass_statics: pcenter=512.0)
 constexpr float kPCenterValue = 512.0f;
 
-// a tier's bank element and the patch value its dot reads
+// a tier's bank element (the patch values its dot reads: Taps<Bank>::Acc)
 template <Tier T> struct TierTypes;
-template <> struct TierTypes<Tier::kF32> { using Bank = float; using Patch = float; };
-template <> struct TierTypes<Tier::kBF16> { using Bank = __nv_bfloat16; using Patch = float; };
-template <> struct TierTypes<Tier::kPCenter> { using Bank = __nv_bfloat16; using Patch = float; };
-template <> struct TierTypes<Tier::kInt8> { using Bank = int16_t; using Patch = int; };
+template <> struct TierTypes<Tier::kF32> { using Bank = float; };
+template <> struct TierTypes<Tier::kBF16> { using Bank = __nv_bfloat16; };
+template <> struct TierTypes<Tier::kPCenter> { using Bank = __nv_bfloat16; };
+template <> struct TierTypes<Tier::kInt8> { using Bank = int16_t; };
 
-// cheap tile: patch rows/cols plus one more for the gradient stencil
-constexpr int kImgH = kTileH + 2 * kMargin + 2;  // 20
-constexpr int kImgW = kTileW + 2 * kMargin + 2;  // 44
+// -- A1: the hash ------------------------------------------------------------
+
+// A1's tile: 32 x 32 output pixels a block of 256 threads
+constexpr int kHashTile = 32;
+constexpr int kHashThreads = 256;
+// cheap tile: the tensor window plus one more for the gradient stencil
+constexpr int kHImg = kHashTile + 2 * kMargin + 2;  // 44
 // gradient products: the tensor window around every tile pixel
-constexpr int kGpH = kTileH + 2 * kMargin;  // 18
-constexpr int kGpW = kTileW + 2 * kMargin;  // 42
+constexpr int kHGp = kHashTile + 2 * kMargin;  // 42
+// vertical sums a thread computes down one column
+constexpr int kSeg = 8;
+// row stride of the vertical sums: odd, so 32 lanes on 32 rows read 32 banks
+constexpr int kVStride = kHGp + 1;  // 43
+// horizontal sums a thread computes along one row
+constexpr int kRun = kHashTile / (kHashThreads / 32);  // 4
 
 constexpr float kPi = static_cast<float>(3.141592653589793);
 constexpr float kQuarterPi = static_cast<float>(3.141592653589793 / 4.0);
@@ -163,114 +211,318 @@ __device__ __forceinline__ int hash_bucket(float a, float b, float d,
   return ai * (hp.qstrength * hp.qcoherence) + si * hp.qcoherence + ci;
 }
 
-// kPhases: 4 (ratio-2 bank, rows bucket * 4 + phase) or 1 (single-phase
-// bank, rows bucket). kTier: the tier (see the header). pbias (kPCenter) is
-// the bank's per-row bias, inv_scale (kInt8) its 1/scale; the other tiers
-// ignore them.
-template <int kPhases, Tier kTier>
-__global__ void __launch_bounds__(kTileW * kTileH)
-hash_filter_kernel(const float* __restrict__ cheap,
-                   const typename TierTypes<kTier>::Bank* __restrict__ filters,
-                   const float* __restrict__ pbias, float inv_scale,
-                   float* __restrict__ raw, int h, int w, HashParams hp) {
-  using Patch = typename TierTypes<kTier>::Patch;
-  // the pcenter and int8 dots read their own patch values: a second tile
-  constexpr bool kOwnPatch = kTier == Tier::kPCenter || kTier == Tier::kInt8;
-  __shared__ float s_img[kImgH][kImgW];
-  __shared__ Patch s_pt[kOwnPatch ? kImgH : 1][kOwnPatch ? kImgW : 1];
-  __shared__ float s_gp[3][kGpH][kGpW];
-  __shared__ float s_v[3][kTileH][kGpW];
+// Every pixel's bucket, one byte each (the wrapper holds the bucket count
+// at 256 or below). The block stages the cheap tile with its 6-pixel halo;
+// each of 168 threads walks 18 rows down one column of the tensor window,
+// building the gradient products in registers, and writes 8 vertical sums;
+// each thread then slides along 4 pixels of one row (lanes on 32 rows)
+// for the horizontal sums and hashes them. Every sum keeps the plain
+// version's order of taps; the buckets leave through shared memory, so the
+// block writes them row by row.
+__global__ void __launch_bounds__(kHashThreads, 4)
+hash_bucket_kernel(const float* __restrict__ cheap, uint8_t* __restrict__ buckets,
+                   int h, int w, HashParams hp) {
+  __shared__ float s_img[kHImg][kHImg];
+  __shared__ float s_v[3][kHashTile][kVStride];
+  __shared__ uint8_t s_b[kHashTile][kHashTile];
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kTileW + tx;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * kHashTile;
+  const int y0 = blockIdx.y * kHashTile;
 
-  // cheap rows y0-6 .. y0+13, cols x0-6 .. x0+37; zero outside the plane
-  for (int k = tid; k < kImgH * kImgW; k += kTileW * kTileH) {
-    const int i = k / kImgW;
-    const int j = k % kImgW;
+  // cheap rows y0-6 .. y0+37, cols x0-6 .. x0+37; zero outside the plane
+  for (int k = tid; k < kHImg * kHImg; k += kHashThreads) {
+    const int i = k / kHImg;
+    const int j = k % kHImg;
     const int gr = y0 - kMargin - 1 + i;
     const int gc = x0 - kMargin - 1 + j;
-    const float v = (gr >= 0 && gr < h && gc >= 0 && gc < w)
-                        ? cheap[static_cast<size_t>(gr) * w + gc]
-                        : 0.0f;
-    s_img[i][j] = v;
-    if constexpr (kTier == Tier::kPCenter) {
-      s_pt[i][j] = __bfloat162float(__float2bfloat16_rn(v - kPCenterValue));
-    } else if constexpr (kTier == Tier::kInt8) {
-      s_pt[i][j] = static_cast<int>(v);  // integer-valued plane: exact
-    }
+    s_img[i][j] = (gr >= 0 && gr < h && gc >= 0 && gc < w)
+                      ? cheap[static_cast<size_t>(gr) * w + gc]
+                      : 0.0f;
   }
   __syncthreads();
 
-  // gradient products at rows y0-5 .. y0+12, cols x0-5 .. x0+36. The
-  // gradients are zero on the plane's border rows (gx) and columns (gy), and
-  // the products are zero outside the plane.
-  for (int k = tid; k < kGpH * kGpW; k += kTileW * kTileH) {
-    const int i = k / kGpW;
-    const int j = k % kGpW;
-    const int gr = y0 - kMargin + i;
+  // vertical tensor sums: column j of the window (plane column x0-5+j),
+  // rows kSeg*s .. kSeg*s+7 of the tile, taps in order 0..10 over the
+  // gradient products of window rows kSeg*s .. kSeg*s+17. The gradients are
+  // zero on the plane's border rows (gx) and columns (gy), and the products
+  // are zero outside the plane.
+  // Each product row i feeds the sums of rows i-10 .. i as their tap
+  // i - o, so every sum still adds its taps in order 0..10 while only the
+  // 3 x 8 sums stay live.
+  for (int task = tid; task < kHGp * (kHashTile / kSeg); task += kHashThreads) {
+    const int j = task % kHGp;
+    const int s = task / kHGp;
     const int gc = x0 - kMargin + j;
-    float gx = 0.0f;
-    float gy = 0.0f;
-    if (gr >= 0 && gr < h && gc >= 0 && gc < w) {
-      if (gr >= 1 && gr <= h - 2) gx = s_img[i + 2][j + 1] - s_img[i][j + 1];
-      if (gc >= 1 && gc <= w - 2) gy = s_img[i + 1][j + 2] - s_img[i + 1][j];
+    float acc[3][kSeg];
+#pragma unroll
+    for (int i = 0; i < kSeg + kPatch - 1; ++i) {
+      const int gi = kSeg * s + i;
+      const int gr = y0 - kMargin + gi;
+      float gx = 0.0f;
+      float gy = 0.0f;
+      if (gr >= 0 && gr < h && gc >= 0 && gc < w) {
+        if (gr >= 1 && gr <= h - 2) gx = s_img[gi + 2][j + 1] - s_img[gi][j + 1];
+        if (gc >= 1 && gc <= w - 2) gy = s_img[gi + 1][j + 2] - s_img[gi + 1][j];
+      }
+      const float p[3] = {gx * gx, gx * gy, gy * gy};
+#pragma unroll
+      for (int o = 0; o < kSeg; ++o) {
+        if (o > i || i - o >= kPatch) continue;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          acc[m][o] = o == i ? p[m] * hp.k1d[0] : acc[m][o] + p[m] * hp.k1d[i - o];
+        }
+        if (i - o == kPatch - 1) {
+#pragma unroll
+          for (int m = 0; m < 3; ++m) s_v[m][kSeg * s + o][j] = acc[m][o];
+        }
+      }
     }
-    s_gp[0][i][j] = gx * gx;
-    s_gp[1][i][j] = gx * gy;
-    s_gp[2][i][j] = gy * gy;
   }
   __syncthreads();
 
-  // vertical tensor sums for the tile's rows, taps in order 0..10
-  for (int k = tid; k < kTileH * kGpW; k += kTileW * kTileH) {
-    const int i = k / kGpW;
-    const int j = k % kGpW;
-#pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      float acc = s_gp[m][i][j] * hp.k1d[0];
-#pragma unroll
-      for (int q = 1; q < kPatch; ++q) acc = acc + s_gp[m][i + q][j] * hp.k1d[q];
-      s_v[m][i][j] = acc;
-    }
-  }
-  __syncthreads();
-
-  const int r = y0 + ty;
-  const int c = x0 + tx;
-  if (r >= h || c >= w) return;
-
-  // horizontal sums, then * nf
-  float st[3];
+  // horizontal sums of tile row `row`, columns c0 .. c0+3, then * nf
+  const int row = tid % 32;
+  const int c0 = (tid / 32) * kRun;
+  float st[kRun][3];
 #pragma unroll
   for (int m = 0; m < 3; ++m) {
-    float acc = s_v[m][ty][tx] * hp.k1d[0];
 #pragma unroll
-    for (int q = 1; q < kPatch; ++q) acc = acc + s_v[m][ty][tx + q] * hp.k1d[q];
-    st[m] = acc * hp.nf;
+    for (int q = 0; q < kRun + kPatch - 1; ++q) {
+      const float v = s_v[m][row][c0 + q];
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) {
+        if (e > q || q - e >= kPatch) continue;
+        st[e][m] = e == q ? v * hp.k1d[0] : st[e][m] + v * hp.k1d[q - e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kRun; ++e) st[e][m] = st[e][m] * hp.nf;
   }
-  const int bucket = hash_bucket(st[0], st[1], st[2], hp);
-  int row = bucket;
-  if (kPhases == 4) {
-    // pixel phase ((r-5) mod 2, (c-5) mod 2); & 1 is a floor modulo for r < 5
-    const int phase = (((r - kMargin) & 1) << 1) | ((c - kMargin) & 1);
-    row = bucket * kPhases + phase;
+#pragma unroll
+  for (int e = 0; e < kRun; ++e) {
+    s_b[row][c0 + e] = static_cast<uint8_t>(hash_bucket(st[e][0], st[e][1], st[e][2], hp));
   }
-
-  const auto* frow = filters + static_cast<size_t>(row) * kFilterStride;
-  float v;
-  if constexpr (kOwnPatch) {
-    v = gather_dot<kImgW>(frow, &s_pt[ty + 1][tx + 1]);
-  } else {
-    v = gather_dot<kImgW>(frow, &s_img[ty + 1][tx + 1]);
+  __syncthreads();
+  for (int k = tid; k < kHashTile * kHashTile; k += kHashThreads) {
+    const int r = y0 + k / kHashTile;
+    const int c = x0 + k % kHashTile;
+    if (r < h && c < w) {
+      buckets[static_cast<size_t>(r) * w + c] = s_b[k / kHashTile][k % kHashTile];
+    }
   }
-  if constexpr (kTier == Tier::kPCenter) v = v + __ldg(pbias + row);
-  if constexpr (kTier == Tier::kInt8) v = v * inv_scale;
-  raw[static_cast<size_t>(r) * w + c] = v;
 }
+
+// -- A2: the gather with the bank resident in shared memory ------------------
+
+constexpr int kGroupThreads = 256;                        // 8 warps
+constexpr int kGroups = 4;                                // tile groups a block
+constexpr int kBlockThreads = kGroups * kGroupThreads;    // 1024
+constexpr int kPix = 2;                                   // pixels a thread, one column
+constexpr int kTileRows = kPix * kGroupThreads / 32;      // same-phase rows a tile: 16
+constexpr int kTileCols = 32;                             // same-phase columns: a lane each
+
+// A tile of 16 x 32 same-phase pixels, kStep (2 for 4 phases, 1 for 1)
+// rows and columns apart, and its staged patch region: the rows and columns
+// its patches cover, stored as kStep planes by column parity, so that
+// region column x is word x / kStep of plane x % kStep.
+template <int kStep>
+struct TileShape {
+  static constexpr int kRows = kStep * (kTileRows - 1) + kPatch;   // 41 or 26
+  static constexpr int kCols = kStep * (kTileCols - 1) + kPatch;   // 73 or 42
+  static constexpr int kPlaneW = (kCols + kStep - 1) / kStep;      // 37 or 42
+  static constexpr int kRowStride = kStep * kPlaneW;               // 74 or 42
+  static constexpr int kWords = kRows * kRowStride;
+  static constexpr int kPerThread = (kRows * kCols + kGroupThreads - 1) / kGroupThreads;
+};
+
+// A phase's bank row in shared memory: taps 0..120 in an odd number of
+// 16-byte groups (see the header)
+template <typename TF>
+constexpr int kSmemRowBytes = 16 * (kRowGroups<TF> | 1);  // 496 (float32) or 272
+
+// A2's dynamic shared memory: the phase's rows, the pcenter bias, then two
+// tile buffers a group
+template <int kPhases, Tier kTier>
+struct GatherSmem {
+  using TF = typename TierTypes<kTier>::Bank;
+  static constexpr int kStep = kPhases == 4 ? 2 : 1;
+  __host__ __device__ static size_t tiles_offset(int n_buckets) {
+    const size_t bias = kTier == Tier::kPCenter ? ((n_buckets * 4 + 15) / 16) * 16 : 0;
+    return static_cast<size_t>(n_buckets) * kSmemRowBytes<TF> + bias;
+  }
+  __host__ __device__ static size_t bytes(int n_buckets) {
+    return tiles_offset(n_buckets) +
+           static_cast<size_t>(2 * kGroups) * TileShape<kStep>::kWords * 4;
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// 4 bytes, or 4 zero bytes where !valid
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 4 : 0));
+}
+
+// a barrier of one group's 256 threads (ids 1..kGroups; 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(kGroupThreads) : "memory");
+}
+
+// Persistent: block b serves phase b % kPhases. It stages that phase's rows
+// (bucket * kPhases + phase) once, then each of its groups walks over the
+// phase's tiles, kGroups * (gridDim.x / kPhases) tiles apart. pbias
+// (kPCenter) is the bank's per-row bias, inv_scale (kInt8) its 1/scale; the
+// other tiers ignore them.
+template <int kPhases, Tier kTier>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+gather_resident_kernel(const float* __restrict__ cheap,
+                       const uint8_t* __restrict__ buckets,
+                       const typename TierTypes<kTier>::Bank* __restrict__ filters,
+                       const float* __restrict__ pbias, float inv_scale,
+                       float* __restrict__ raw, int h, int w, int n_buckets) {
+  using TF = typename TierTypes<kTier>::Bank;
+  using TP = typename Taps<TF>::Acc;
+  constexpr int kStep = kPhases == 4 ? 2 : 1;
+  using Shape = TileShape<kStep>;
+  constexpr int kRowBytes = kSmemRowBytes<TF>;
+
+  // the phase's pixels: rows r0 + kStep * i, columns c0 + kStep * j, where
+  // a pixel's phase is ((r-5) mod 2, (c-5) mod 2)
+  const int phase = blockIdx.x % kPhases;
+  const int r0 = kPhases == 4 ? ((phase >> 1) + kMargin) & 1 : 0;
+  const int c0 = kPhases == 4 ? ((phase & 1) + kMargin) & 1 : 0;
+  const int n_r = h > r0 ? (h - r0 + kStep - 1) / kStep : 0;
+  const int n_c = w > c0 ? (w - c0 + kStep - 1) / kStep : 0;
+  const int tiles_c = (n_c + kTileCols - 1) / kTileCols;
+  const int n_tiles = ((n_r + kTileRows - 1) / kTileRows) * tiles_c;
+  const int group = threadIdx.x / kGroupThreads;
+  const int first = (blockIdx.x / kPhases) * kGroups + group;
+  const int stride = (gridDim.x / kPhases) * kGroups;
+  if (blockIdx.x / kPhases * kGroups >= n_tiles) return;  // the whole block idles
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* s_bank = smem;
+  float* s_bias = reinterpret_cast<float*>(smem + static_cast<size_t>(n_buckets) * kRowBytes);
+  TP* s_tiles = reinterpret_cast<TP*>(
+      smem + GatherSmem<kPhases, kTier>::tiles_offset(n_buckets)) + 2 * group * Shape::kWords;
+
+  // stage the phase's rows: global row bucket * kPhases + phase (128 taps)
+  // to shared row bucket (kRowBytes apart), 16 bytes a copy
+  {
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(filters);
+    constexpr int kG = kRowGroups<TF>;
+    for (int i = threadIdx.x; i < n_buckets * kG; i += kBlockThreads) {
+      const int b = i / kG;
+      const int q = i % kG;
+      cp_async16(s_bank + static_cast<size_t>(b) * kRowBytes + 16 * q,
+                 src + (static_cast<size_t>(b) * kPhases + phase) * kFilterStride * sizeof(TF) +
+                     16 * q);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    if constexpr (kTier == Tier::kPCenter) {
+      for (int b = threadIdx.x; b < n_buckets; b += kBlockThreads) {
+        s_bias[b] = pbias[b * kPhases + phase];
+      }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int gtid = threadIdx.x % kGroupThreads;
+  const int warp = gtid / 32;
+  const int lane = gtid % 32;
+
+  // Tile t's patch region, from (tile row 0) - 5 and (tile column 0) - 5,
+  // copied into buffer b (zero outside the plane) as one cp.async group;
+  // element e of the region is this thread's for e = gtid (mod 256).
+  auto slot = [&](int e) {
+    const int y = e / Shape::kCols;
+    const int x = e % Shape::kCols;
+    return y * Shape::kRowStride + (x % kStep) * Shape::kPlaneW + x / kStep;
+  };
+  auto issue = [&](int t, int b) {
+    float* dst = reinterpret_cast<float*>(s_tiles + b * Shape::kWords);
+    const int top = r0 + kStep * kTileRows * (t / tiles_c) - kMargin;
+    const int left = c0 + kStep * kTileCols * (t % tiles_c) - kMargin;
+#pragma unroll
+    for (int k = 0; k < Shape::kPerThread; ++k) {
+      const int e = gtid + k * kGroupThreads;
+      if (e < Shape::kRows * Shape::kCols) {
+        const int gr = top + e / Shape::kCols;
+        const int gc = left + e % Shape::kCols;
+        const bool valid = gr >= 0 && gr < h && gc >= 0 && gc < w;
+        cp_async4_zfill(dst + slot(e), valid ? cheap + static_cast<size_t>(gr) * w + gc : cheap,
+                        valid);
+      }
+    }
+  };
+
+  if (first < n_tiles) issue(first, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  int buf = 0;
+  for (int t = first; t < n_tiles; t += stride, buf ^= 1) {
+    // the thread's pixels: same-phase rows kPix * warp .. +kPix-1 of the
+    // tile, same-phase column lane
+    const int r = r0 + kStep * (kTileRows * (t / tiles_c) + kPix * warp);
+    const int c = c0 + kStep * (kTileCols * (t % tiles_c) + lane);
+    bool inside[kPix];
+    int bucket[kPix];
+#pragma unroll
+    for (int p = 0; p < kPix; ++p) {
+      inside[p] = r + kStep * p < h && c < w;
+      bucket[p] = inside[p] ? buckets[static_cast<size_t>(r + kStep * p) * w + c] : 0;
+    }
+
+    group_sync(group);  // the group's dot of the previous tile is done with buffer buf ^ 1
+    if (t + stride < n_tiles) issue(t + stride, buf ^ 1);  // in flight during this dot
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this thread's copies of tile t
+    TP* s_tile = s_tiles + buf * Shape::kWords;
+    if constexpr (kTier == Tier::kPCenter || kTier == Tier::kInt8) {
+      // once every copy of tile t has landed, the value the dot reads, in
+      // place, word by word: pcenter's bf16(plane - 512), int8's integers
+      // (the plane is integer-valued: exact)
+      group_sync(group);
+      float* f = reinterpret_cast<float*>(s_tile);
+      for (int i = gtid; i < Shape::kWords; i += kGroupThreads) {
+        const float v = f[i];
+        if constexpr (kTier == Tier::kPCenter) {
+          f[i] = __bfloat162float(__float2bfloat16_rn(v - kPCenterValue));
+        } else {
+          s_tile[i] = static_cast<int>(v);
+        }
+      }
+    }
+    group_sync(group);
+
+    const TP* base = s_tile + kStep * kPix * warp * Shape::kRowStride + lane;
+    float v[kPix];
+    dot_rows<TF, kPix, kStep>(
+        v,
+        [&](int p, int q) {
+          return reinterpret_cast<const uint4*>(s_bank + bucket[p] * kRowBytes)[q];
+        },
+        [&](int rho, int dx) {
+          return base[rho * Shape::kRowStride + (dx % kStep) * Shape::kPlaneW + dx / kStep];
+        });
+#pragma unroll
+    for (int p = 0; p < kPix; ++p) {
+      if (!inside[p]) continue;
+      if constexpr (kTier == Tier::kPCenter) v[p] = v[p] + s_bias[bucket[p]];
+      if constexpr (kTier == Tier::kInt8) v[p] = v[p] * inv_scale;
+      raw[static_cast<size_t>(r + kStep * p) * w + c] = v[p];
+    }
+  }
+}
+
+// -- B: the epilogue -----------------------------------------------------------
 
 // Frame coordinate of a global row: identity for one frame; for a stack of
 // frame_h-row frames with 2*frame_pad guard rows between them, guard rows map
@@ -341,38 +593,63 @@ epilogue_kernel(const float* __restrict__ cheap, const float* __restrict__ raw,
   out[o] = fminf(fmaxf(floorf(val + 0.5f), p.min_val), p.max_val);
 }
 
-using HashFilterLaunch = void (*)(const float*, const void*, const float*, float, float*,
-                                  int, int, const HashParams&, cudaStream_t);
+// -- launches ------------------------------------------------------------------
 
+using GatherLaunch = cudaError_t (*)(const float*, const uint8_t*, const void*, const float*,
+                                     float, float*, int, int, int, int, cudaStream_t);
+
+// Launch A2: one persistent block a SM (a block of 1024 threads at 59-64
+// registers fills the register file), a whole multiple of kPhases, and no
+// more than the tiles of a phase need. A block that cannot get its shared
+// memory fails cudaFuncSetAttribute or the launch, and the error returns.
 template <int kPhases, Tier kTier>
-void launch_hash_filter(const float* cheap, const void* filters, const float* pbias,
-                        float inv_scale, float* raw, int h, int w, const HashParams& hp,
-                        cudaStream_t st) {
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
-  hash_filter_kernel<kPhases, kTier><<<grid, block, 0, st>>>(
-      cheap, static_cast<const typename TierTypes<kTier>::Bank*>(filters), pbias,
-      inv_scale, raw, h, w, hp);
+cudaError_t launch_gather(const float* cheap, const uint8_t* buckets, const void* filters,
+                          const float* pbias, float inv_scale, float* raw, int h, int w,
+                          int n_buckets, int device, cudaStream_t st) {
+  constexpr int kStep = kPhases == 4 ? 2 : 1;
+  const size_t smem = GatherSmem<kPhases, kTier>::bytes(n_buckets);
+  cudaError_t err = cudaFuncSetAttribute(&gather_resident_kernel<kPhases, kTier>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // tiles of the phase with the most pixels
+  const long long n_r = (h + kStep - 1) / kStep;
+  const long long n_c = (w + kStep - 1) / kStep;
+  const long long tiles = ((n_r + kTileRows - 1) / kTileRows) * ((n_c + kTileCols - 1) / kTileCols);
+  const long long per_phase =
+      std::max(1LL, std::min<long long>(sms / kPhases, (tiles + kGroups - 1) / kGroups));
+  gather_resident_kernel<kPhases, kTier>
+      <<<static_cast<int>(per_phase * kPhases), kBlockThreads, smem, st>>>(
+          cheap, buckets, static_cast<const typename TierTypes<kTier>::Bank*>(filters), pbias,
+          inv_scale, raw, h, w, n_buckets);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch A. Host arrays k1d[11], qstr[n_qstr], qcoh[n_qcoh] are copied into
-// the kernel's parameters. filters is [qangle*qstrength*qcoherence*phases,
+// Launch A: A1 (the hash into `buckets`, [h, w] uint8 scratch) then A2 (the
+// gather into `raw`). Host arrays k1d[11], qstr[n_qstr], qcoh[n_qcoh] are
+// copied into A1's parameters. filters is [qangle*qstrength*qcoherence*phases,
 // 128], 16-byte aligned: float32 (tier 0), bfloat16 (tiers 1 and 2) or int16
-// (tier 3); phases is 4 or 1 for tiers 0 and 1, 4 for tiers 2 and 3. pbias is
-// the pcenter tier's float32 [rows] bias (tier 2, else unused), inv_scale the
-// int8 tier's 1/scale (tier 3). Returns a cudaError_t value (0 on success).
+// (tier 3); phases is 4 or 1 for tiers 0 and 1, 4 for tiers 2 and 3; at most
+// 256 buckets. pbias is the pcenter tier's float32 [rows] bias (tier 2, else
+// unused), inv_scale the int8 tier's 1/scale (tier 3). Returns a cudaError_t
+// value (0 on success).
 extern "C" int raisr_full_hash_filter(
     const float* cheap, const void* filters, int tier, const float* pbias,
-    float inv_scale, float* raw, int h, int w, int phases, const float* k1d,
-    float nf, const float* qstr, int n_qstr, const float* qcoh, int n_qcoh,
-    int qangle, int qstrength, int qcoherence, float angle_scale, int device,
+    float inv_scale, float* raw, uint8_t* buckets, int h, int w, int phases,
+    const float* k1d, float nf, const float* qstr, int n_qstr, const float* qcoh,
+    int n_qcoh, int qangle, int qstrength, int qcoherence, float angle_scale, int device,
     void* stream) {
   const bool four = phases == 4;
+  const int n_buckets = qangle * qstrength * qcoherence;
   if (h <= 0 || w <= 0 || (phases != 1 && !four) || tier < 0 || tier > 3 ||
       (tier >= 2 && !four) || (tier == 2 && pbias == nullptr) || n_qstr < 0 ||
-      n_qstr > kMaxEdges || n_qcoh < 0 || n_qcoh > kMaxEdges || qangle <= 0) {
+      n_qstr > kMaxEdges || n_qcoh < 0 || n_qcoh > kMaxEdges || qangle <= 0 ||
+      qstrength <= 0 || qcoherence <= 0 || n_buckets > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DeviceGuard guard(device);
@@ -389,24 +666,28 @@ extern "C" int raisr_full_hash_filter(
   hp.qstrength = qstrength;
   hp.qcoherence = qcoherence;
   hp.angle_scale = angle_scale;
-  HashFilterLaunch launch = nullptr;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((w + kHashTile - 1) / kHashTile, (h + kHashTile - 1) / kHashTile);
+  hash_bucket_kernel<<<grid, kHashThreads, 0, st>>>(cheap, buckets, h, w, hp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  GatherLaunch launch = nullptr;
   switch (static_cast<Tier>(tier)) {
     case Tier::kF32:
-      launch = four ? &launch_hash_filter<4, Tier::kF32> : &launch_hash_filter<1, Tier::kF32>;
+      launch = four ? &launch_gather<4, Tier::kF32> : &launch_gather<1, Tier::kF32>;
       break;
     case Tier::kBF16:
-      launch = four ? &launch_hash_filter<4, Tier::kBF16> : &launch_hash_filter<1, Tier::kBF16>;
+      launch = four ? &launch_gather<4, Tier::kBF16> : &launch_gather<1, Tier::kBF16>;
       break;
     case Tier::kPCenter:
-      launch = &launch_hash_filter<4, Tier::kPCenter>;
+      launch = &launch_gather<4, Tier::kPCenter>;
       break;
     case Tier::kInt8:
-      launch = &launch_hash_filter<4, Tier::kInt8>;
+      launch = &launch_gather<4, Tier::kInt8>;
       break;
   }
-  launch(cheap, filters, pbias, inv_scale, raw, h, w, hp,
-         static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch(cheap, buckets, filters, pbias, inv_scale, raw, h, w, n_buckets, device, st));
 }
 
 // Launch B. Returns a cudaError_t value (0 on success).

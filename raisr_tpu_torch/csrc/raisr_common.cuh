@@ -1,13 +1,25 @@
 // Shared pieces of the raisr_tpu_torch CUDA kernels (full_kernel.cu,
-// filter_kernel.cu): constants, the per-pixel gather-dot and DeviceGuard.
+// filter_kernel.cu, probe_s16.cu): constants, the per-pixel dot of a filter
+// row with its patch, and DeviceGuard.
 //
-// gather_dot is the one place where a pixel's 121-tap filter row meets its
-// 11x11 patch. Launch A of the fused pass (hash_filter_kernel) and the
-// filter-apply kernel (filter_apply_kernel) both call it, so they sum taps
-// 0..120 in the same order, each product and sum rounded on its own (nvcc
-// --fmad=false), as the plain PyTorch version (ops/filter_apply.py
+// dot_rows is the one place where a pixel's 121-tap filter row meets its
+// 11x11 patch. The fused pass's gather launch (full_kernel.cu
+// gather_resident_kernel, rows from a bank resident in shared memory) and
+// the filter-apply kernel (filter_kernel.cu filter_apply_kernel, rows
+// gathered from global memory through gather_dot) both call it, so they sum
+// taps 0..120 in the same order, each product and sum rounded on its own
+// (nvcc --fmad=false), as the plain PyTorch version (ops/filter_apply.py
 // apply_filters_taps) does. An int16 row (the int8 tier) sums exactly in
 // int32, so its order does not matter.
+//
+// What bounds a dot on an H100 is how its row arrives, not its arithmetic
+// (121 multiplies and adds). From global memory (gather_dot) a row is 31
+// 16-byte loads at float32 and 16 at 16 bits, and the 32 lanes of a warp
+// read up to 32 different rows, so each warp-wide load splits into up to
+// 32 sectors through L1 from L2. From shared memory (the gather launch) the
+// same loads are served a quarter-warp at a time, and rows that coincide
+// are broadcasts; see full_kernel.cu for the layout that spreads the rest
+// over the banks.
 
 #pragma once
 
@@ -23,88 +35,102 @@ constexpr int kPatch = 11;
 constexpr int kMargin = kPatch / 2;       // patch margin, 5
 constexpr int kLoopMargin = kMargin + 1;  // processed-zone margin, 6
 constexpr int kTaps = kPatch * kPatch;    // 121
-constexpr int kFilterStride = 128;        // taps per bank row, zero-padded
+constexpr int kFilterStride = 128;        // taps per bank row in global memory, zero-padded
 
-// output tile of one block: 32 x 8 threads, one pixel each
+// output tile of one block of the per-pixel kernels: 32 x 8 threads, one
+// pixel each
 constexpr int kTileW = 32;
 constexpr int kTileH = 8;
 
-// Dot of a bank row with the patch whose top-left pixel is `patch`, a
-// shared-memory plane with rows kStride values apart; taps 0..120 in order.
-// TF is the bank's element type, TP the patch's:
-//   float, float          a 512-byte row, 31 16-byte read-only loads of 4 taps;
-//   __nv_bfloat16, float  a 256-byte row, 16 16-byte loads of 8 taps, each tap
-//                         widened to float32 exactly (its bits are the high
-//                         half);
-//   int16_t, int          a 256-byte row of integer taps, 16 16-byte loads of
-//                         8, each sign-extended and multiplied by the integer
-//                         patch value in int32. The caller keeps the sum exact
-//                         (|tap| <= 32768, 8-bit values: |sum| < 2^31); it
-//                         is returned rounded to float32 (round to nearest
-//                         even).
-template <int kStride, typename TF, typename TP>
-__device__ __forceinline__ float gather_dot(const TF* __restrict__ frow,
-                                            const TP* patch) {
-  if constexpr (std::is_same<TF, int16_t>::value) {
-    static_assert(std::is_same<TP, int>::value, "an int16 row takes an int patch");
-    const uint4* u4p = reinterpret_cast<const uint4*>(frow);
-    int acc = 0;
-#pragma unroll
-    for (int q = 0; q < (kTaps + 7) / 8; ++q) {
-      const uint4 u4 = __ldg(u4p + q);
-      const unsigned int word[4] = {u4.x, u4.y, u4.z, u4.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int t = 8 * q + e;
-        if (t < kTaps) {
-          // little endian: tap 2k is the low half of word k, 2k+1 the high
-          const int tap = static_cast<int16_t>(
-              (e & 1) ? (word[e / 2] >> 16) : (word[e / 2] & 0xffffu));
-          acc += patch[(t / kPatch) * kStride + t % kPatch] * tap;
-        }
-      }
-    }
-    return __int2float_rn(acc);
-  } else if constexpr (std::is_same<TF, float>::value) {
-    static_assert(std::is_same<TP, float>::value, "a float row takes a float patch");
-    const float4* f4p = reinterpret_cast<const float4*>(frow);
-    float acc = 0.0f;
-#pragma unroll
-    for (int q = 0; q < (kTaps + 3) / 4; ++q) {
-      const float4 f4 = __ldg(f4p + q);
-      const float fv[4] = {f4.x, f4.y, f4.z, f4.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int t = 4 * q + e;
-        if (t < kTaps) {
-          acc = acc + patch[(t / kPatch) * kStride + t % kPatch] * fv[e];
-        }
-      }
-    }
-    return acc;
-  } else {
-    static_assert(std::is_same<TF, __nv_bfloat16>::value && std::is_same<TP, float>::value,
-                  "bank rows are float, __nv_bfloat16 (float patch) or int16_t (int patch)");
-    const uint4* u4p = reinterpret_cast<const uint4*>(frow);
-    float acc = 0.0f;
-#pragma unroll
-    for (int q = 0; q < (kTaps + 7) / 8; ++q) {
-      const uint4 u4 = __ldg(u4p + q);
-      const unsigned int word[4] = {u4.x, u4.y, u4.z, u4.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int t = 8 * q + e;
-        if (t < kTaps) {
-          // little endian: tap 2k is the low half of word k, 2k+1 the high
-          const unsigned int bits =
-              (e & 1) ? (word[e / 2] & 0xffff0000u) : (word[e / 2] << 16);
-          acc = acc + patch[(t / kPatch) * kStride + t % kPatch] *
-                          __uint_as_float(bits);
-        }
-      }
-    }
-    return acc;
+// A bank row's 16-byte groups: kN taps each, tap e of a group as the dot
+// reads it (float32; bfloat16 widened exactly, its bits the high half;
+// int16 sign-extended), and Acc, the type of the dot's sum and of the patch
+// values it reads. Little endian: 16-bit tap 2k is the low half of word k,
+// 2k+1 the high.
+template <typename TF> struct Taps;
+template <> struct Taps<float> {
+  static constexpr int kN = 4;
+  using Acc = float;
+  __device__ static float at(const uint4& u, int e) {
+    const unsigned int word[4] = {u.x, u.y, u.z, u.w};
+    return __uint_as_float(word[e]);
   }
+};
+template <> struct Taps<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  using Acc = float;
+  __device__ static float at(const uint4& u, int e) {
+    const unsigned int word[4] = {u.x, u.y, u.z, u.w};
+    return __uint_as_float((e & 1) ? (word[e / 2] & 0xffff0000u) : (word[e / 2] << 16));
+  }
+};
+template <> struct Taps<int16_t> {
+  static constexpr int kN = 8;
+  using Acc = int;
+  __device__ static int at(const uint4& u, int e) {
+    const unsigned int word[4] = {u.x, u.y, u.z, u.w};
+    return static_cast<int16_t>((e & 1) ? (word[e / 2] >> 16) : (word[e / 2] & 0xffffu));
+  }
+};
+
+// 16-byte groups of a row that hold taps 0..120: 31 at float32, 16 at 16 bits
+template <typename TF>
+constexpr int kRowGroups = (kTaps + Taps<TF>::kN - 1) / Taps<TF>::kN;
+
+// Dots of P bank rows with P patches, taps 0..120 of each in order. Pixel
+// p's patch row dy is row kRowStep * p + dy of the rows the P patches span,
+// so a patch value that several pixels share is read once. `group(p, q)`
+// returns pixel p's q-th 16-byte group, `patch(rho, dx)` the patch value at
+// spanned row rho, column dx. TF is the bank's element type:
+//   float          a float patch, each product and sum rounded on its own;
+//   __nv_bfloat16  the same, each tap widened to float32 exactly;
+//   int16_t        an int patch, integer products summed in int32. The
+//                  caller keeps the sum exact (|tap| <= 32768, 8-bit values:
+//                  |sum| < 2^31); it is returned rounded to float32 (round
+//                  to nearest even).
+template <typename TF, int P, int kRowStep, typename Group, typename Patch>
+__device__ __forceinline__ void dot_rows(float (&out)[P], Group group, Patch patch) {
+  using Acc = typename Taps<TF>::Acc;
+  Acc acc[P];
+  uint4 cur[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) acc[p] = Acc(0);
+#pragma unroll
+  for (int rho = 0; rho < kPatch + kRowStep * (P - 1); ++rho) {
+#pragma unroll
+    for (int dx = 0; dx < kPatch; ++dx) {
+      const Acc v = patch(rho, dx);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int dy = rho - kRowStep * p;
+        if (dy < 0 || dy >= kPatch) continue;
+        const int t = dy * kPatch + dx;
+        if (t % Taps<TF>::kN == 0) cur[p] = group(p, t / Taps<TF>::kN);
+        acc[p] = acc[p] + v * Taps<TF>::at(cur[p], t % Taps<TF>::kN);
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if constexpr (std::is_same<Acc, int>::value) {
+      out[p] = __int2float_rn(acc[p]);
+    } else {
+      out[p] = acc[p];
+    }
+  }
+}
+
+// One dot: a row in global memory (16-byte aligned), read through the
+// read-only path, and a patch whose top-left pixel is `patch` in a
+// shared-memory plane with rows kStride values apart.
+template <int kStride, typename TF>
+__device__ __forceinline__ float gather_dot(const TF* __restrict__ frow,
+                                            const typename Taps<TF>::Acc* patch) {
+  const uint4* g = reinterpret_cast<const uint4*>(frow);
+  float out[1];
+  dot_rows<TF, 1, 0>(out, [&](int, int q) { return __ldg(g + q); },
+                     [&](int rho, int dx) { return patch[rho * kStride + dx]; });
+  return out[0];
 }
 
 // Makes `device` current for one launch and restores the caller's device

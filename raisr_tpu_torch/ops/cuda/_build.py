@@ -1,6 +1,7 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-`nvcc` compiles every `raisr_tpu_torch/csrc/*.cu` for Hopper (sm_90a) into one
+`nvcc` compiles every `raisr_tpu_torch/csrc/*.cu` for Hopper (sm_90a), one
+process a source, all started together, and links the objects into one
 shared library with a plain C interface, `build/torch_kernels/libraisr_kernels.so`
 at the root of the checkout. No PyTorch headers are included, so a build takes
 seconds. The library is rebuilt when the hash of the sources, the headers they
@@ -29,7 +30,7 @@ LIB_NAME = "libraisr_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _LIB: ctypes.CDLL | None = None
@@ -76,22 +77,27 @@ def build(verbose: bool = False) -> pathlib.Path:
     if lib.is_file() and stamp.is_file() and stamp.read_text() == digest and not verbose:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build into a temporary name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    # build into a temporary directory, then rename the library: a
+    # concurrent loader never sees a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cmds = [[nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-c",
+                 "-o", os.path.join(tmp, src.stem + ".o"), str(src)] for src in srcs]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", os.path.join(tmp, LIB_NAME),
+                *(cmd[-2] for cmd in cmds)]
+        for cmd, proc, out in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            if verbose:
+                print(out, end="")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(os.path.join(tmp, LIB_NAME), lib)
     stamp.write_text(digest)
     return lib
 
@@ -104,7 +110,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raisr_full_hash_filter
-    fn.argtypes = [vp, vp, i, vp, f, vp, i, i, i, vp, f, vp, i, vp, i, i, i, i, f, i, vp]
+    fn.argtypes = [vp, vp, i, vp, f, vp, vp, i, i, i, vp, f, vp, i, vp, i, i, i, i, f, i, vp]
     fn.restype = i
     fn = lib.raisr_full_epilogue
     fn.argtypes = [vp, vp, vp, i, i, f, f, i, i, i, i, i, i, i, vp]

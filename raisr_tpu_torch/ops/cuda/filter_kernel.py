@@ -7,7 +7,8 @@ Port of raisr_tpu/ops/pallas/filter_kernel.py:
     -> `apply_filters`, csrc/filter_kernel.cu filter_apply_kernel<4> / <1>;
   - apply_filters_hash_pallas (_band_kernel_fused, hash + filter, 4 phases)
     -> `apply_filters_hash`, launch A of csrc/full_kernel.cu
-    (hash_filter_kernel<4, Tier::kF32>), which the fused pass runs too.
+    (hash_bucket_kernel, then gather_resident_kernel<4, Tier::kF32>), which
+    the fused pass runs too.
 The TPU knobs (tb2, rowbatch, mxu_passes, interpret) have no meaning here and
 are gone: the card computes plain float32 at every bit depth, so the 10-bit
 case (mxu_passes=3 on the TPU) needs nothing extra.
@@ -33,6 +34,7 @@ HASH_LAUNCHES = 0  # apply_filters_hash, through launch A
 
 FILTER_STRIDE = 128  # taps per bank row, zero-padded
 MAX_EDGES = 8
+MAX_BUCKETS = 256  # launch A's bucket plane is uint8 (csrc/full_kernel.cu)
 # the pcenter tier's patch centre (raisr_tpu's pass_statics: pcenter=512.0);
 # csrc/full_kernel.cu kPCenterValue
 PCENTER = 512.0
@@ -144,13 +146,18 @@ def _check_bank(filters: torch.Tensor, device: torch.device, n_rows: int,
         )
 
 
-def _check_hash_args(k1d, qstr, qcoh, qstrength, qcoherence, patch_size) -> None:
+def _check_hash_args(k1d, qstr, qcoh, qangle, qstrength, qcoherence, patch_size) -> None:
     if patch_size != 11 or len(k1d) != 11:
         raise ValueError(f"the CUDA kernel takes patch_size 11, got {patch_size}")
     if len(qstr) != qstrength - 1 or len(qcoh) != qcoherence - 1:
         raise ValueError("qstr/qcoh must hold qstrength-1 / qcoherence-1 edges")
     if len(qstr) > MAX_EDGES or len(qcoh) > MAX_EDGES:
         raise ValueError(f"at most {MAX_EDGES} strength/coherence edges")
+    if not 0 < qangle * qstrength * qcoherence <= MAX_BUCKETS:
+        raise ValueError(
+            f"the CUDA kernel hands each pixel's bucket on as one byte: at most "
+            f"{MAX_BUCKETS} buckets, got {qangle} x {qstrength} x {qcoherence}"
+        )
 
 
 def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
@@ -166,20 +173,23 @@ def _launch_hash_filter(cheap, filters, raw, pixel_types, *, k1d, nf, qstr, qcoh
                         qangle, qstrength, qcoherence, tier: int = 0,
                         pbias: torch.Tensor | None = None,
                         inv_scale: float | None = None) -> None:
-    """Launch A (hash + gather-dot) on the current stream; raises if the
-    launch fails. `tier` is csrc/full_kernel.cu's tier code (0 float32,
-    1 bfloat16, 2 pcenter with `pbias`, 3 int8 with `inv_scale`). The
-    arguments are checked by the caller."""
+    """Launch A (the hash into a uint8 bucket plane, then the gather with
+    the phase's bank resident in shared memory) on the current stream;
+    raises if a launch fails or the gather cannot get its shared memory.
+    `tier` is csrc/full_kernel.cu's tier code (0 float32, 1 bfloat16,
+    2 pcenter with `pbias`, 3 int8 with `inv_scale`). The arguments are
+    checked by the caller."""
     from raisr_tpu_torch.ops.cuda._build import load_library
 
     h, w = cheap.shape
+    buckets = torch.empty((h, w), dtype=torch.uint8, device=cheap.device)
     dev, stream = _device_and_stream(cheap)
     k1d_c, qstr_c, qcoh_c = _floats(k1d), _floats(qstr), _floats(qcoh)
     err = load_library().raisr_full_hash_filter(
         cheap.data_ptr(), filters.data_ptr(), tier,
         pbias.data_ptr() if pbias is not None else None,
         float(inv_scale) if inv_scale is not None else 1.0,
-        raw.data_ptr(), h, w, pixel_types,
+        raw.data_ptr(), buckets.data_ptr(), h, w, pixel_types,
         ctypes.addressof(k1d_c), float(nf),
         ctypes.addressof(qstr_c), len(qstr), ctypes.addressof(qcoh_c), len(qcoh),
         qangle, qstrength, qcoherence, float(qangle / hashing.PI), dev, stream,
@@ -272,7 +282,7 @@ def apply_filters_hash(
         raise ValueError(f"apply_filters_hash runs on cpu or cuda, not {cheap.device}")
     _check_plane(cheap)
     _check_bank(filters, cheap.device, qangle * qstrength * qcoherence * 4)
-    _check_hash_args(k1d, qstr, qcoh, qstrength, qcoherence, patch_size)
+    _check_hash_args(k1d, qstr, qcoh, qangle, qstrength, qcoherence, patch_size)
     if patch_margin != 5:
         raise ValueError(f"the CUDA kernel takes patch_margin 5, got {patch_margin}")
     raw = torch.empty_like(cheap)

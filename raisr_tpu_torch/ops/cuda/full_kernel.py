@@ -3,12 +3,15 @@ wrappers, their plain PyTorch version, and the tiers' bank preparation.
 
 Port of raisr_tpu/ops/pallas/full_kernel.py:raisr_pass_pallas_full (ratio 2,
 4 pixel phases) and raisr_pass_pallas_full_single (single-phase banks, e.g.
-ratio 1.5). One kernel, csrc/full_kernel.cu, serves both (two launches per
-pass, see its header); the phase count is its only difference. The TPU tiling
-and precision knobs (tb2, ostack, rowbatch, cchunk, gchunk, hashloop, mpack,
-ftrans, mxu_passes, p_split, i8, pcenter, interpret) have no meaning here and
-are gone. The tier is the bank's dtype (and, for pcenter, its bias), each
-bank prepared once on the host side:
+ratio 1.5). One kernel, csrc/full_kernel.cu, serves both (launch A, hash
+then gather with the phase's bank resident in shared memory, and launch B,
+the epilogue; see its header); the phase count is its only difference. The
+TPU tiling and precision knobs (tb2, ostack, rowbatch, cchunk, gchunk,
+hashloop, mpack, ftrans, mxu_passes, p_split, i8, pcenter, interpret) have no
+meaning here and are gone. The caller names the tier (`tier`, from
+`PassStatics.tier` on the engine's path); the wrapper and its plain version
+hold the bank's dtype and extras to it (`_check_tier`). Each tier's bank is
+prepared once on the host side:
   - float32: the TPU's float32 grade (mxu_passes 2 and 3), at every depth;
   - bfloat16 (`round_bf16_error_diffused`): the 8-bit bf16 tier
     (mxu_passes=1), and p_split at 10/16 bits: a bf16 tap times an integer
@@ -21,10 +24,10 @@ bank prepared once on the host side:
 
 `raisr_pass_full` and `raisr_pass_full_single` run the kernel on a CUDA
 tensor and the plain version on a CPU tensor. There is no fallback: on CUDA
-they launch the kernel or raise. Each tier and phase count has its launch
-count: `LAUNCHES` and `SINGLE_LAUNCHES` (float32, 4-phase and single-phase),
-`BF16_LAUNCHES` and `SINGLE_BF16_LAUNCHES` (bfloat16, p_split included),
-`PCENTER_LAUNCHES` and `INT8_LAUNCHES` (4-phase only, as on the TPU).
+they launch the kernel or raise. `LAUNCHES[(tier, phases)]` counts the
+passes that went through the kernel, one per pass whatever its CUDA
+launches: float32 and bfloat16 (p_split included) with 4 or 1 phases,
+pcenter and int8 with 4 only, as on the TPU.
 """
 
 from __future__ import annotations
@@ -45,19 +48,14 @@ from raisr_tpu_torch.ops.cuda.filter_kernel import (
 )
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end, zone_height
 
-LAUNCHES = 0  # 4-phase passes, float32 bank
-SINGLE_LAUNCHES = 0  # single-phase passes, float32 bank
-BF16_LAUNCHES = 0  # 4-phase passes, bfloat16 bank (8-bit bf16 and p_split)
-SINGLE_BF16_LAUNCHES = 0  # single-phase passes, bfloat16 bank
-PCENTER_LAUNCHES = 0  # 4-phase passes, bfloat16 bank and pcenter bias
-INT8_LAUNCHES = 0  # 4-phase passes, int16 bank (the int8 tier)
-
-# (tier, phases) -> its launch count; csrc/full_kernel.cu's tier codes
-_COUNTS = {
-    ("float32", 4): "LAUNCHES", ("float32", 1): "SINGLE_LAUNCHES",
-    ("bfloat16", 4): "BF16_LAUNCHES", ("bfloat16", 1): "SINGLE_BF16_LAUNCHES",
-    ("pcenter", 4): "PCENTER_LAUNCHES", ("int8", 4): "INT8_LAUNCHES",
+# passes through the kernel, by (tier, phases): every form the kernel has
+LAUNCHES = {
+    ("float32", 4): 0, ("float32", 1): 0, ("bfloat16", 4): 0, ("bfloat16", 1): 0,
+    ("pcenter", 4): 0, ("int8", 4): 0,
 }
+# each tier's bank dtype, and its code in csrc/full_kernel.cu
+TIER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "pcenter": torch.bfloat16, "int8": torch.int16}
 _TIER_CODE = {"float32": 0, "bfloat16": 1, "pcenter": 2, "int8": 3}
 
 _N_TAPS = 121
@@ -145,16 +143,6 @@ def pcenter_bias(bank: torch.Tensor) -> torch.Tensor:
     return (PCENTER * bank.to(torch.float64).sum(dim=1)).to(torch.float32).contiguous()
 
 
-def bank_tier(filters: torch.Tensor, pbias: torch.Tensor | None = None) -> str:
-    """The tier a prepared bank runs: "int8" (int16 bank), "pcenter"
-    (bfloat16 bank with a bias), "bfloat16" or "float32"."""
-    if filters.dtype == torch.int16:
-        return "int8"
-    if pbias is not None:
-        return "pcenter"
-    return "bfloat16" if filters.dtype == torch.bfloat16 else "float32"
-
-
 def raisr_pass_full_reference(
     cheap: torch.Tensor,  # [H, W] f32 (integer-valued)
     filters: torch.Tensor,  # [216 * pixel_types, 128] f32, bf16 or int16
@@ -176,14 +164,16 @@ def raisr_pass_full_reference(
     row0: int = 0,
     zone_h: int = 0,
     pixel_types: int = 4,
+    tier: str = "float32",
     pbias: torch.Tensor | None = None,
     inv_scale: float | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of one fused pass, on any device: the plain hash
     and filter apply of ops/cuda/filter_kernel.py (gradients -> separable
     structure tensor -> hash buckets -> (pixel phases) -> 121-tap filter at
-    the bank's tier), then the frame-aware pass epilogue. Same arguments as
-    raisr_pass_full."""
+    the caller's tier, held by _check_tier), then the frame-aware pass
+    epilogue. Same arguments as raisr_pass_full."""
+    _check_tier(tier, filters, pixel_types, pbias, inv_scale, max_val)
     w = cheap.shape[1]
     margin = patch_size // 2
     buckets = hash_buckets_reference(
@@ -207,38 +197,46 @@ def raisr_pass_full_single_reference(cheap, filters, **kw) -> torch.Tensor:
     return raisr_pass_full_reference(cheap, filters, pixel_types=1, **kw)
 
 
+def _check_tier(tier: str, filters: torch.Tensor, pixel_types: int,
+                pbias: torch.Tensor | None, inv_scale: float | None, max_val: int) -> None:
+    """Holds the bank and its extras to the caller's tier, on every device:
+    the tier's bank dtype (TIER_DTYPES) and phase counts (LAUNCHES),
+    `pbias` with pcenter and only there, `inv_scale` with int8 and only
+    there. The int8 tier's int32 dot is exact for 8-bit planes only
+    (121 * 32896 * 255 < 2^31), so it refuses a max_val above 255."""
+    if tier not in TIER_DTYPES:
+        raise ValueError(f"tier must be one of {sorted(TIER_DTYPES)}, got {tier!r}")
+    if (tier, pixel_types) not in LAUNCHES:
+        raise ValueError(f"the {tier} tier takes 4 pixel types, got {pixel_types}")
+    if filters.dtype != TIER_DTYPES[tier]:
+        raise ValueError(f"the {tier} tier takes a {TIER_DTYPES[tier]} bank, got {filters.dtype}")
+    if (pbias is not None) != (tier == "pcenter"):
+        raise ValueError(f"pbias goes with the pcenter tier, and only there (tier {tier})")
+    if (inv_scale is not None) != (tier == "int8"):
+        raise ValueError(f"inv_scale goes with the int8 tier, and only there (tier {tier})")
+    if tier == "int8" and max_val > 255:
+        raise ValueError(f"the int8 tier takes 8-bit planes (max_val <= 255), got {max_val}")
+
+
 def _check(cheap, filters, k1d, qstr, qcoh, qangle, qstrength, qcoherence,
-           patch_size, blending, pixel_types, pbias=None, inv_scale=None,
-           max_val=255) -> str:
-    """Checks the kernel's arguments; returns the bank's tier. The int8
-    tier's int32 dot is exact for 8-bit planes only (121 * 32896 * 255 <
-    2^31), so an int16 bank on a plane whose max_val is above 255 is
-    refused."""
+           patch_size, blending, pixel_types, tier="float32", pbias=None) -> None:
+    """Checks the kernel's own arguments at a tier _check_tier has held the
+    bank to: shapes, devices and layouts."""
     _check_phases(pixel_types)
     _check_plane(cheap)
     n_rows = qangle * qstrength * qcoherence * pixel_types
-    _check_bank(filters, cheap.device, n_rows, (torch.float32, torch.bfloat16, torch.int16))
-    _check_hash_args(k1d, qstr, qcoh, qstrength, qcoherence, patch_size)
+    _check_bank(filters, cheap.device, n_rows, (TIER_DTYPES[tier],))
+    _check_hash_args(k1d, qstr, qcoh, qangle, qstrength, qcoherence, patch_size)
     if blending not in (1, 2):
         raise ValueError(f"blending must be 1 or 2, got {blending}")
-    tier = bank_tier(filters, pbias)
-    if (tier, pixel_types) not in _COUNTS:
-        raise ValueError(f"the {tier} tier takes 4 pixel types, got {pixel_types}")
     if pbias is not None and (
-        filters.dtype != torch.bfloat16 or pbias.dtype != torch.float32
-        or tuple(pbias.shape) != (n_rows,) or pbias.device != cheap.device
-        or not pbias.is_contiguous()
+        pbias.dtype != torch.float32 or tuple(pbias.shape) != (n_rows,)
+        or pbias.device != cheap.device or not pbias.is_contiguous()
     ):
         raise ValueError(
-            f"pbias goes with a bfloat16 bank and must be a contiguous float32 "
-            f"[{n_rows}] tensor on {cheap.device}, got {pbias.dtype} "
-            f"{tuple(pbias.shape)} on {pbias.device} with a {filters.dtype} bank"
+            f"pbias must be a contiguous float32 [{n_rows}] tensor on {cheap.device}, "
+            f"got {pbias.dtype} {tuple(pbias.shape)} on {pbias.device}"
         )
-    if (tier == "int8") != (inv_scale is not None):
-        raise ValueError("inv_scale goes with an int16 bank (the int8 tier), and only there")
-    if tier == "int8" and max_val > 255:
-        raise ValueError(f"the int8 tier takes 8-bit planes (max_val <= 255), got {max_val}")
-    return tier
 
 
 def raisr_pass_full(
@@ -262,14 +260,15 @@ def raisr_pass_full(
     row0: int = 0,  # global row of plane row 0 (row stripes)
     zone_h: int = 0,  # >0: global frame height for zone tests (stripes)
     pixel_types: int = 4,  # 4: ratio-2 bank [864, 128]; 1: single-phase [216, 128]
+    tier: str = "float32",  # a key of TIER_DTYPES (PassStatics.tier)
     pbias: torch.Tensor | None = None,  # pcenter: pcenter_bias of the bf16 bank
     inv_scale: float | None = None,  # int8: the 1/scale of int8_bank
 ) -> torch.Tensor:
     """One complete RAISR pass, fused: the CUDA kernel for a CUDA tensor,
-    raisr_pass_full_reference for a CPU tensor. The bank sets the tier:
-    float32; bfloat16 (round_bf16_error_diffused; the 8-bit bf16 tier and
-    p_split); bfloat16 with `pbias` (pcenter, 4 phases); int16 with
-    `inv_scale` (int8_bank, 4 phases, 8-bit planes).
+    raisr_pass_full_reference for a CPU tensor, at the caller's tier:
+    "float32"; "bfloat16" (a round_bf16_error_diffused bank; the 8-bit bf16
+    tier and p_split); "pcenter" (that bank with `pbias`, 4 phases); "int8"
+    (an int8_bank with `inv_scale`, 4 phases, 8-bit planes).
 
     k1d, qstr and qcoh are sequences of floats (the edges taken from the
     bank's float32 arrays); they are passed to the kernel as float32."""
@@ -279,14 +278,15 @@ def raisr_pass_full(
         min_val=min_val, max_val=max_val, blending=blending,
         exact_edges=exact_edges, frame_h=frame_h, frame_pad=frame_pad,
         row0=row0, zone_h=zone_h, pixel_types=pixel_types,
-        pbias=pbias, inv_scale=inv_scale,
+        tier=tier, pbias=pbias, inv_scale=inv_scale,
     )
     if cheap.device.type == "cpu":
         return raisr_pass_full_reference(cheap, filters, **kw)
+    _check_tier(tier, filters, pixel_types, pbias, inv_scale, max_val)
     if cheap.device.type != "cuda":
         raise ValueError(f"raisr_pass_full runs on cpu or cuda, not {cheap.device}")
-    tier = _check(cheap, filters, k1d, qstr, qcoh, qangle, qstrength, qcoherence,
-                  patch_size, blending, pixel_types, pbias, inv_scale, max_val)
+    _check(cheap, filters, k1d, qstr, qcoh, qangle, qstrength, qcoherence,
+           patch_size, blending, pixel_types, tier, pbias)
 
     from raisr_tpu_torch.ops.cuda._build import load_library
 
@@ -306,8 +306,7 @@ def raisr_pass_full(
     )
     if err:
         raise RuntimeError(f"raisr_full_epilogue launch failed: cudaError {err}")
-    count = _COUNTS[(tier, pixel_types)]
-    globals()[count] += 1
+    LAUNCHES[(tier, pixel_types)] += 1
     return out
 
 
@@ -315,5 +314,5 @@ def raisr_pass_full_single(cheap, filters, **kw) -> torch.Tensor:
     """One complete RAISR pass for a single-phase bank ([216, 128] float32 or
     bfloat16; ratio != 2, the reference's gUsePixelType == false,
     Raisr.cpp:1477-1480): raisr_pass_full with pixel_types=1, counted in
-    SINGLE_LAUNCHES (SINGLE_BF16_LAUNCHES for a bfloat16 bank)."""
+    LAUNCHES[(tier, 1)]."""
     return raisr_pass_full(cheap, filters, pixel_types=1, **kw)

@@ -111,8 +111,8 @@ def raisr_pass(
     if s.backend == "pallas":
         # whole pass in one fused call: 4-phase for ratio-2 banks, else the
         # single-phase form over a single-phase bank or the phase-0 rows of a
-        # 4-phase one (pass_banks; pass_statics refuses any other bank); the
-        # tier rides on the prepared bank and its extras
+        # 4-phase one (pass_banks; pass_statics refuses any other bank), at
+        # the statics' tier over the bank pass_banks prepared for it
         return raisr_pass_full(
             cheap,
             bank.filters,
@@ -131,6 +131,7 @@ def raisr_pass(
             frame_h=frame_h,
             frame_pad=frame_pad,
             pixel_types=4 if s.use_pixel_type else 1,
+            tier=s.tier,
             pbias=bank.pbias,
             inv_scale=bank.inv_scale,
         )

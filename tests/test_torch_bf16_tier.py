@@ -80,7 +80,7 @@ def test_plain_bf16_pass_matches_jax_mxu1(pixel_types, blending):
     ref = np.asarray(jfn(jnp.asarray(img), jnp.asarray(bank.filters), mxu_passes=1,
                          interpret=True, **kw))
     f16 = fk.round_bf16_error_diffused(torch.from_numpy(bank.filters))
-    out = fk.raisr_pass_full_reference(torch.from_numpy(img), f16,
+    out = fk.raisr_pass_full_reference(torch.from_numpy(img), f16, tier="bfloat16",
                                        pixel_types=pixel_types, **kw).numpy()
     assert out.shape == (h, w) and np.isfinite(out).all()
     first, last = (6, h - 7) if blending == 1 else (1, h - 2)
@@ -101,10 +101,10 @@ def test_plain_bf16_pass_is_float32_arithmetic_on_the_widened_bank():
     img = torch.from_numpy(smooth(32, 48, seed=63))
     f16 = fk.round_bf16_error_diffused(torch.from_numpy(bank.filters))
     kw = _kw(bank, 2)
-    before = (fk.LAUNCHES, fk.BF16_LAUNCHES, fk.SINGLE_BF16_LAUNCHES)
-    out = fk.raisr_pass_full(img, f16, **kw)
+    before = dict(fk.LAUNCHES)
+    out = fk.raisr_pass_full(img, f16, tier="bfloat16", **kw)
     assert torch.equal(out, fk.raisr_pass_full_reference(img, f16.float(), **kw))
-    assert (fk.LAUNCHES, fk.BF16_LAUNCHES, fk.SINGLE_BF16_LAUNCHES) == before
+    assert fk.LAUNCHES == before
 
 
 @pytest.fixture(scope="module")
@@ -151,13 +151,13 @@ def test_engine_auto_is_the_plain_bf16_passes(yuv):
     for i in range(y.shape[0]):
         x = cheap_upscale(y[i].to(torch.float32), 2 * h, 2 * w, 8)
         for bank, f16 in zip(tm.banks, banks):
-            x = fk.raisr_pass_full_reference(x, f16, **_kw(bank, 2))
+            x = fk.raisr_pass_full_reference(x, f16, tier="bfloat16", **_kw(bank, 2))
         assert torch.equal(oy[i], x), i
         assert torch.equal(oy[i], eng.upscale_y(y[i].to(torch.float32))), i
 
 
-def test_engine_refuses_later_tiers():
-    """No tier is refused any more: at 10/16 bits every bf16 dtype, float32
+def test_engine_builds_every_tier():
+    """Every tier builds an engine: at 10/16 bits every bf16 dtype, float32
     and int8 build an engine on the fused backend, at the tier raisr_tpu's
     pass_statics gives (pcenter for bfloat16/auto at 10 bits, the bf16 bank
     (p_split) otherwise, float32 at every depth, int8 with its int16 banks).

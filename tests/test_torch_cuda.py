@@ -22,7 +22,8 @@ from raisr_tpu_torch.ops.cuda import filter_kernel as flk
 from raisr_tpu_torch.ops.cuda import full_kernel as fk
 from raisr_tpu_torch.ops.cuda import probe_s16 as ps
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
-from torch_port_util import QCOH, QSTR, make_filters, require_cuda, smooth, smooth_frames
+from torch_port_util import (QCOH, QSTR, make_filters, patchwork, require_cuda, smooth,
+                             smooth_frames)
 
 pytestmark = pytest.mark.cuda
 
@@ -56,11 +57,11 @@ def test_kernel_matches_plain_version(blending, h, w):
     dev = require_cuda()
     img = torch.tensor(smooth(h, w, seed=h + w), device=dev)
     f = torch.tensor(make_filters(np.random.default_rng(1)), device=dev)
-    before = fk.LAUNCHES
+    before = fk.LAUNCHES[("float32", 4)]
     got = fk.raisr_pass_full(img, f, **_kw(blending))
     want = fk.raisr_pass_full_reference(img, f, **_kw(blending))
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == before + 1
+    assert fk.LAUNCHES[("float32", 4)] == before + 1
     assert torch.isfinite(got).all()
     diff = (got - want).abs()
     assert torch.equal(got, want), (int((diff > 0).sum()), float(diff.max()))
@@ -78,6 +79,10 @@ def test_kernel_stack_equals_per_frame():
     for i, x in enumerate(frames):
         single = fk.raisr_pass_full(torch.tensor(x, device=dev), f, **_kw(2))
         assert torch.equal(tall[i * period + pad: i * period + pad + h], single), i
+
+
+def _zero(counts: dict) -> None:
+    counts.update(dict.fromkeys(counts, 0))
 
 
 def _graph_step(eng, y, u):
@@ -102,10 +107,10 @@ def test_device_step_and_graph_capture():
     y = torch.tensor(rng.integers(16, 235, (2, 40, 64)), dtype=torch.uint8, device=dev)
     u = torch.tensor(rng.integers(16, 240, (2, 20, 32)), dtype=torch.uint8, device=dev)
     eng = RaisrEngine(RaisrConfig(passes=2), model, device=dev)
-    fk.LAUNCHES = 0
+    _zero(fk.LAUNCHES)
     oy, ou, ov = eng.process_batch_device(y, u, u)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == 2  # one fused launch per pass for the whole batch
+    assert fk.LAUNCHES[("float32", 4)] == 2  # one fused pass per pass for the whole batch
     assert oy.device.type == "cuda" and oy.dtype == torch.uint8
     # the same step through the plain version on the CPU
     cpu = RaisrEngine(RaisrConfig(passes=2, backend="pallas"), model, device="cpu")
@@ -125,11 +130,12 @@ def test_single_kernel_matches_plain_version(blending, h, w):
     dev = require_cuda()
     img = torch.tensor(smooth(h, w, seed=h + w + 1), device=dev)
     f = torch.tensor(make_filters(np.random.default_rng(4), 1), device=dev)
-    before = (fk.LAUNCHES, fk.SINGLE_LAUNCHES)
+    before = dict(fk.LAUNCHES)
     got = fk.raisr_pass_full_single(img, f, **_kw(blending))
     want = fk.raisr_pass_full_single_reference(img, f, **_kw(blending))
     torch.cuda.synchronize()
-    assert (fk.LAUNCHES, fk.SINGLE_LAUNCHES) == (before[0], before[1] + 1)
+    before[("float32", 1)] += 1
+    assert fk.LAUNCHES == before
     assert torch.isfinite(got).all()
     diff = (got - want).abs()
     assert torch.equal(got, want), (int((diff > 0).sum()), float(diff.max()))
@@ -161,11 +167,11 @@ def test_15x_device_step_and_graph_capture(passes, mode):
     u = torch.tensor(rng.integers(16, 240, (2, 24, 32)), dtype=torch.uint8, device=dev)
     cfg = dict(ratio=1.5, passes=passes, mode=mode)
     eng = RaisrEngine(RaisrConfig(**cfg), model, device=dev)
-    fk.LAUNCHES = fk.SINGLE_LAUNCHES = 0
+    _zero(fk.LAUNCHES)
     oy, ou, ov = eng.process_batch_device(y, u, u)
     torch.cuda.synchronize()
-    # one single-phase launch per pass for the whole guard-banded stack
-    assert (fk.LAUNCHES, fk.SINGLE_LAUNCHES) == (0, passes)
+    # one single-phase pass per pass for the whole guard-banded stack
+    assert fk.LAUNCHES == {k: passes if k == ("float32", 1) else 0 for k in fk.LAUNCHES}
     assert tuple(oy.shape) == (2, 72, 96) and tuple(ou.shape) == (2, 36, 48)
     cpu = RaisrEngine(RaisrConfig(backend="pallas", **cfg), model, device="cpu")
     cy, cu, _ = cpu.process_batch_device(y.cpu(), u.cpu(), u.cpu())
@@ -237,12 +243,12 @@ def test_bf16_kernel_matches_plain_version(pixel_types, blending, h, w):
     f = fk.round_bf16_error_diffused(
         torch.tensor(make_filters(np.random.default_rng(9), pixel_types), device=dev))
     assert f.dtype == torch.bfloat16
-    count = "BF16_LAUNCHES" if pixel_types == 4 else "SINGLE_BF16_LAUNCHES"
-    before = getattr(fk, count)
-    got = fk.raisr_pass_full(img, f, pixel_types=pixel_types, **_kw(blending))
-    want = fk.raisr_pass_full_reference(img, f, pixel_types=pixel_types, **_kw(blending))
+    before = fk.LAUNCHES[("bfloat16", pixel_types)]
+    kw = dict(_kw(blending), pixel_types=pixel_types, tier="bfloat16")
+    got = fk.raisr_pass_full(img, f, **kw)
+    want = fk.raisr_pass_full_reference(img, f, **kw)
     torch.cuda.synchronize()
-    assert getattr(fk, count) == before + 1
+    assert fk.LAUNCHES[("bfloat16", pixel_types)] == before + 1
     diff = (got - want).abs()
     assert torch.equal(got, want), (int((diff > 0).sum()), float(diff.max()))
 
@@ -259,12 +265,11 @@ def test_bf16_device_step_and_graph_capture(ratio, passes, pixel_types):
     u = torch.tensor(rng.integers(16, 240, (2, 24, 32)), dtype=torch.uint8, device=dev)
     cfg = dict(ratio=ratio, passes=passes, dtype="auto")
     eng = RaisrEngine(RaisrConfig(**cfg), model, device=dev)
-    fk.LAUNCHES = fk.SINGLE_LAUNCHES = fk.BF16_LAUNCHES = fk.SINGLE_BF16_LAUNCHES = 0
+    _zero(fk.LAUNCHES)
     oy, ou, ov = eng.process_batch_device(y, u, u)
     torch.cuda.synchronize()
-    want = (passes, 0) if pixel_types == 4 else (0, passes)
-    assert (fk.BF16_LAUNCHES, fk.SINGLE_BF16_LAUNCHES) == want
-    assert fk.LAUNCHES == fk.SINGLE_LAUNCHES == 0
+    assert fk.LAUNCHES == {k: passes if k == ("bfloat16", pixel_types) else 0
+                           for k in fk.LAUNCHES}
     cpu = RaisrEngine(RaisrConfig(backend="pallas", **cfg), model, device="cpu")
     cy, cu, _ = cpu.process_batch_device(y.cpu(), u.cpu(), u.cpu())
     assert torch.equal(oy.cpu(), cy), int((oy.cpu() != cy).sum())
@@ -287,11 +292,11 @@ def test_25x_route(dtype):
                      dtype=torch.uint8, device=dev)
     cfg = dict(ratio=2.5, passes=1, dtype=dtype)
     eng = RaisrEngine(RaisrConfig(**cfg), model, device=dev)
-    fk.LAUNCHES = fk.SINGLE_LAUNCHES = fk.BF16_LAUNCHES = fk.SINGLE_BF16_LAUNCHES = 0
+    _zero(fk.LAUNCHES)
     oy = eng.process_batch_device(y)[0]
     torch.cuda.synchronize()
-    single = fk.SINGLE_LAUNCHES if dtype == "float32" else fk.SINGLE_BF16_LAUNCHES
-    assert single == 2 and fk.LAUNCHES == fk.BF16_LAUNCHES == 0
+    tier = "float32" if dtype == "float32" else "bfloat16"
+    assert fk.LAUNCHES == {k: 2 if k == (tier, 1) else 0 for k in fk.LAUNCHES}
     assert tuple(oy.shape) == (2, 100, 140)
     cpu = RaisrEngine(RaisrConfig(backend="pallas", **cfg), model, device="cpu")
     assert torch.equal(oy.cpu(), cpu.process_batch_device(y.cpu())[0])
@@ -307,6 +312,8 @@ def _tier_bank(tier, pixel_types=4, seed=14):
     if tier == "int8":
         q, inv_scale = fk.int8_bank(f)
         return q, dict(inv_scale=inv_scale)
+    if tier == "float32":
+        return f, {}
     f16 = fk.round_bf16_error_diffused(f)
     return f16, (dict(pbias=fk.pcenter_bias(f16)) if tier == "pcenter" else {})
 
@@ -323,28 +330,26 @@ def test_tier_kernel_matches_plain_version(tier, bits, pixel_types, blending, h,
     dev = require_cuda()
     img = torch.tensor(smooth(h, w, bits=bits, seed=h + w + 4), device=dev)
     f, extra = _tier_bank(tier, pixel_types)
-    count = {"int8": "INT8_LAUNCHES", "pcenter": "PCENTER_LAUNCHES"}.get(
-        tier, "BF16_LAUNCHES" if pixel_types == 4 else "SINGLE_BF16_LAUNCHES")
-    before = getattr(fk, count)
-    kw = dict(_kw(blending, bits), pixel_types=pixel_types, **extra)
+    before = fk.LAUNCHES[(tier, pixel_types)]
+    kw = dict(_kw(blending, bits), pixel_types=pixel_types, tier=tier, **extra)
     got = fk.raisr_pass_full(img, f, **kw)
     want = fk.raisr_pass_full_reference(img, f, **kw)
     torch.cuda.synchronize()
-    assert getattr(fk, count) == before + 1
+    assert fk.LAUNCHES[(tier, pixel_types)] == before + 1
     assert torch.isfinite(got).all()
     diff = (got - want).abs()
     assert torch.equal(got, want), (int((diff > 0).sum()), float(diff.max()))
 
 
-@pytest.mark.parametrize("bits,dtype,ratio,passes,count", [
-    (8, "int8", 2.0, 2, "INT8_LAUNCHES"),
-    (10, "bfloat16", 2.0, 2, "PCENTER_LAUNCHES"),
-    (10, "bfloat16_exact", 2.0, 1, "BF16_LAUNCHES"),
-    (16, "bfloat16", 2.0, 1, "BF16_LAUNCHES"),
-    (16, "float32", 2.0, 1, "LAUNCHES"),
-    (10, "bfloat16", 1.5, 1, "SINGLE_BF16_LAUNCHES"),
+@pytest.mark.parametrize("bits,dtype,ratio,passes,tier", [
+    (8, "int8", 2.0, 2, "int8"),
+    (10, "bfloat16", 2.0, 2, "pcenter"),
+    (10, "bfloat16_exact", 2.0, 1, "bfloat16"),
+    (16, "bfloat16", 2.0, 1, "bfloat16"),
+    (16, "float32", 2.0, 1, "float32"),
+    (10, "bfloat16", 1.5, 1, "bfloat16"),
 ])
-def test_tier_device_step_and_graph_capture(bits, dtype, ratio, passes, count):
+def test_tier_device_step_and_graph_capture(bits, dtype, ratio, passes, tier):
     """Each tier through process_batch_device with uint8 or uint16 frames:
     one launch per pass for the stack, counted in the tier's count, equal to
     the plain passes (the CPU engine), eagerly and as a replayed CUDA graph.
@@ -358,12 +363,10 @@ def test_tier_device_step_and_graph_capture(bits, dtype, ratio, passes, count):
     y, u = torch.tensor(y_np, device=dev), torch.tensor(u_np, device=dev)
     cfg = dict(bits=bits, dtype=dtype, ratio=ratio, passes=passes)
     eng = RaisrEngine(RaisrConfig(**cfg), model, device=dev)
-    names = tuple(fk._COUNTS.values())
-    for name in names:
-        setattr(fk, name, 0)
+    _zero(fk.LAUNCHES)
     oy, ou, ov = eng.process_batch_device(y, u, u)
     torch.cuda.synchronize()
-    assert {n: getattr(fk, n) for n in names} == {n: passes if n == count else 0 for n in names}
+    assert fk.LAUNCHES == {k: passes if k == (tier, pt) else 0 for k in fk.LAUNCHES}
 
     def bits16(t):
         return t.view(torch.int16) if t.dtype == torch.uint16 else t
@@ -379,11 +382,89 @@ def test_tier_device_step_and_graph_capture(bits, dtype, ratio, passes, count):
     assert torch.equal(bits16(gv), bits16(ov))
 
 
+# -- launch A with the phase's bank resident in shared memory ---------------
+
+# every form of the kernel: (tier, phases, bits of the planes)
+FORMS = [("float32", 4, 8), ("float32", 1, 8), ("bfloat16", 4, 8), ("bfloat16", 1, 16),
+         ("pcenter", 4, 10), ("int8", 4, 8)]
+
+
+def _plane(kind, bits):
+    """Awkward planes for launch A: a 1x1 and a 7x5 plane, widths 33 and
+    4700, a flat plane (every pixel on one bucket, so every bank read is a
+    broadcast) and a patchwork whose buckets spread over nearly all 216."""
+    top = (1 << bits) - 1
+    if kind == "flat":
+        return np.full((64, 96), top // 2, np.float32)
+    if kind == "spread":
+        return patchwork(384, 512, bits=bits, seed=4)
+    h, w = {"1x1": (1, 1), "7x5": (7, 5), "w33": (37, 33), "w4700": (19, 4700)}[kind]
+    return smooth(h, w, bits=bits, seed=h + w)
+
+
+@pytest.mark.parametrize("kind", ["1x1", "7x5", "w33", "w4700", "flat", "spread"])
+@pytest.mark.parametrize("tier,pixel_types,bits", FORMS)
+def test_launch_a_raw_matches_plain_version(tier, pixel_types, bits, kind):
+    """Launch A alone (hash, then the gather from the resident bank) against
+    the plain hash and filter apply, raw value for raw value, and the whole
+    pass against its plain version, bit for bit."""
+    dev = require_cuda()
+    img = torch.tensor(_plane(kind, bits), device=dev)
+    f, extra = _tier_bank(tier, pixel_types)
+    kw = _kw(2, bits)
+    hkw = {k: kw[k] for k in ("k1d", "nf", "qstr", "qcoh")}
+    buckets = flk.hash_buckets_reference(img, **hkw)
+    n_buckets = int(torch.unique(buckets).numel())
+    if kind == "flat":
+        assert n_buckets == 1
+    if kind == "spread":
+        assert n_buckets >= 200, n_buckets
+    raw = torch.empty_like(img)
+    flk._launch_hash_filter(img, f, raw, pixel_types, **hkw, qangle=24, qstrength=3,
+                            qcoherence=3, tier=fk._TIER_CODE[tier], **extra)
+    want = flk.apply_filters_reference(img, buckets, f, pixel_types=pixel_types,
+                                       ratio=2 if pixel_types == 4 else 1, **extra)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, want), int((raw != want).sum())
+    pkw = dict(kw, pixel_types=pixel_types, tier=tier, **extra)
+    got = fk.raisr_pass_full(img, f, **pkw)
+    assert torch.equal(got, fk.raisr_pass_full_reference(img, f, **pkw))
+
+
+@pytest.mark.parametrize("tier,pixel_types,bits", FORMS)
+def test_launch_a_stacks_and_stripes(tier, pixel_types, bits):
+    """Guard-banded stacks with odd pads (7 and 9 rows) and a row stripe
+    (row0, zone_h) at every form, against the plain version, bit for bit."""
+    dev = require_cuda()
+    f, extra = _tier_bank(tier, pixel_types)
+    base = dict(_kw(2, bits), pixel_types=pixel_types, tier=tier, **extra)
+    h, w = 41, 75
+    for pad in (7, 9):
+        frames = [smooth(h, w, bits=bits, seed=80 + pad + i) for i in range(3)]
+        stack = torch.tensor(np.concatenate(
+            [np.pad(x, ((pad, pad), (0, 0)), mode="edge") for x in frames]), device=dev)
+        got = fk.raisr_pass_full(stack, f, frame_h=h, frame_pad=pad, **base)
+        want = fk.raisr_pass_full_reference(stack, f, frame_h=h, frame_pad=pad, **base)
+        assert torch.equal(got, want), (pad, int((got != want).sum()))
+    stripe = torch.tensor(smooth(53, 70, bits=bits, seed=90), device=dev)
+    got = fk.raisr_pass_full(stripe, f, row0=17, zone_h=120, **base)
+    assert torch.equal(got, fk.raisr_pass_full_reference(stripe, f, row0=17, zone_h=120,
+                                                         **base))
+
+
 # -- the s8 matmul probe --------------------------------------------------------
 
+SIZES = (1, 17, 33, 144, 145)
 
-@pytest.mark.parametrize("m,k,n", [(ps.M, ps.K, ps.N), (17, 5, 33), (1, 300, 2)])
+
+@pytest.mark.parametrize("m,k,n", [(ps.M, ps.K, ps.N), (17, 5, 33), (1, 300, 2),
+                                   (145, 320, 144)] + [
+    (m, k, n) for m in SIZES for k in SIZES for n in SIZES])
 def test_s8_matmul_matches_plain_version_and_int_mm(m, k, n):
+    """The tensor-core tile against the int64 product, exactly, and against
+    torch._int_mm where it takes the shape (m > 16; k and n at least 16 and
+    multiples of 8). k = 300 (byte staging) and k = 320 (16-byte staging)
+    run the loop over two K chunks of 160."""
     dev = require_cuda()
     rng = np.random.default_rng(m + k + n)
     a = torch.tensor(rng.integers(-128, 128, (m, k)).astype(np.int8), device=dev)
@@ -396,5 +477,5 @@ def test_s8_matmul_matches_plain_version_and_int_mm(m, k, n):
     assert ps.LAUNCHES == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, ps.s8_matmul_reference(a, b))
     assert int(got[0, 0]) == 128 * 128 * k
-    if (m, k, n) == (ps.M, ps.K, ps.N):
+    if m > 16 and min(k, n) >= 16 and k % 8 == 0 and n % 8 == 0:
         assert torch.equal(got, torch._int_mm(a, b))

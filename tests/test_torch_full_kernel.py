@@ -108,10 +108,63 @@ def test_wrapper_on_cpu_runs_plain_version(bank):
     img = torch.from_numpy(smooth(24, 40, seed=5))
     f = torch.from_numpy(bank.filters)
     kw = _kw(bank, 2)
-    before = fk.LAUNCHES
+    before = dict(fk.LAUNCHES)
     out = fk.raisr_pass_full(img, f, **kw)
     assert torch.equal(out, fk.raisr_pass_full_reference(img, f, **kw))
     assert fk.LAUNCHES == before  # the kernel was not launched
+
+
+def _tier_bank(tier, filters, pixel_types):
+    """(bank, extras) of a tier from a float32 bank, as the engine prepares it."""
+    f = filters if pixel_types == 4 else filters[0::4].contiguous()
+    if tier == "int8":
+        q, inv_scale = fk.int8_bank(f)
+        return q, dict(inv_scale=inv_scale)
+    if tier == "float32":
+        return f, {}
+    f16 = fk.round_bf16_error_diffused(f)
+    return f16, (dict(pbias=fk.pcenter_bias(f16)) if tier == "pcenter" else {})
+
+
+@pytest.mark.parametrize("tier,pixel_types", sorted(fk.LAUNCHES))
+def test_wrapper_takes_each_tier_with_its_bank(bank, tier, pixel_types):
+    """The caller names the tier; on the CPU each (tier, phases) form runs
+    the plain version over the tier's bank and counts no launch."""
+    img = torch.from_numpy(smooth(24, 40, seed=7))
+    f, extra = _tier_bank(tier, torch.from_numpy(bank.filters), pixel_types)
+    kw = dict(_kw(bank, 2), pixel_types=pixel_types, tier=tier, **extra)
+    before = dict(fk.LAUNCHES)
+    out = fk.raisr_pass_full(img, f, **kw)
+    assert torch.equal(out, fk.raisr_pass_full_reference(img, f, **kw))
+    assert fk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("tier,bank_tier,pixel_types,extras,max_val,match", [
+    ("float64", "float32", 4, (), 235, "tier must be one of"),
+    ("float32", "bfloat16", 4, (), 235, "float32 tier takes a torch.float32 bank"),
+    ("bfloat16", "float32", 1, (), 235, "bfloat16 tier takes a torch.bfloat16 bank"),
+    ("pcenter", "int8", 4, ("pbias",), 235, "pcenter tier takes a torch.bfloat16 bank"),
+    ("int8", "bfloat16", 4, ("inv_scale",), 235, "int8 tier takes a torch.int16 bank"),
+    ("pcenter", "bfloat16", 4, (), 1023, "pbias goes with the pcenter tier"),
+    ("bfloat16", "pcenter", 4, ("pbias",), 1023, "pbias goes with the pcenter tier"),
+    ("pcenter", "pcenter", 1, ("pbias",), 1023, "4 pixel types"),
+    ("int8", "int8", 4, (), 235, "inv_scale goes with the int8 tier"),
+    ("float32", "int8", 4, ("inv_scale",), 235, "takes a torch.float32 bank"),
+    ("int8", "int8", 4, ("inv_scale",), 1023, "8-bit planes"),
+])
+def test_wrapper_refuses_a_bank_of_another_tier(bank, tier, bank_tier, pixel_types, extras,
+                                                max_val, match):
+    """The tier is never inferred from the bank: a bank, bias or 1/scale that
+    is not the named tier's is refused on every device, before any kernel
+    or plain version runs, and by the plain version itself."""
+    f, extra = _tier_bank(bank_tier, torch.from_numpy(bank.filters), 4)
+    kw = dict(_kw(bank, 2), max_val=max_val, pixel_types=pixel_types,
+              **{k: extra.get(k, 1.0) for k in extras})
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match=match):
+            fk.raisr_pass_full(torch.zeros((24, 40), device=dev), f, tier=tier, **kw)
+    with pytest.raises(ValueError, match=match):
+        fk.raisr_pass_full_reference(torch.zeros((24, 40)), f, tier=tier, **kw)
 
 
 def test_wrapper_refuses_other_devices(bank):

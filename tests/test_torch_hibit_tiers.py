@@ -81,14 +81,15 @@ def test_plain_pcenter_pass_matches_jax():
         jnp.asarray(img), jnp.asarray(bank.filters), mxu_passes=1, pcenter=512.0,
         interpret=True, **kw))
     f16 = fk.round_bf16_error_diffused(torch.from_numpy(bank.filters))
-    out = fk.raisr_pass_full_reference(torch.from_numpy(img), f16,
+    out = fk.raisr_pass_full_reference(torch.from_numpy(img), f16, tier="pcenter",
                                        pbias=fk.pcenter_bias(f16), **kw).numpy()
     assert out.shape == (h, w) and np.isfinite(out).all()
     rows = _held_rows(h, 2)
     frac, med = frac_and_median(out[rows], ref[rows])
     assert frac < FUZZ_FRAC and med == 0.0, (frac, med)
     # centring rounds 10-bit values to bf16: not the exact-patch pass
-    exact = fk.raisr_pass_full_reference(torch.from_numpy(img), f16, **kw).numpy()
+    exact = fk.raisr_pass_full_reference(torch.from_numpy(img), f16, tier="bfloat16",
+                                         **kw).numpy()
     assert not np.array_equal(out, exact)
 
 
@@ -105,7 +106,7 @@ def test_plain_p_split_pass_matches_jax(pixel_types):
                          p_split=True, interpret=True, **kw))
     f16 = fk.round_bf16_error_diffused(torch.from_numpy(bank.filters))
     out = fk.raisr_pass_full_reference(torch.from_numpy(img), f16, pixel_types=pixel_types,
-                                       **kw).numpy()
+                                       tier="bfloat16", **kw).numpy()
     rows = _held_rows(h, 2)
     frac, med = frac_and_median(out[rows], ref[rows])
     assert frac < FUZZ_FRAC and med == 0.0, (frac, med)
@@ -178,7 +179,8 @@ def test_engine_hibit_is_the_plain_passes(bits, dtype, ratio):
     (bank,) = eng._filters
     for i in range(2):
         x = cheap_upscale(y[i].to(torch.float32), out_h, out_w, bits)
-        x = fk.raisr_pass_full_reference(x, bank.filters, pbias=bank.pbias, pixel_types=pt,
+        x = fk.raisr_pass_full_reference(x, bank.filters, tier=eng._statics.tier,
+                                         pbias=bank.pbias, pixel_types=pt,
                                          **_kw(jm.banks[0], 2, bits))
         assert torch.equal(oy[i].to(torch.int32), x.to(torch.int32)), i
         assert torch.equal(oy[i].to(torch.float32),

@@ -127,8 +127,8 @@ def test_plain_int8_pass_matches_jax_i8():
     ref = np.asarray(raisr_pass_pallas_full(jnp.asarray(img), jnp.asarray(bank.filters),
                                             i8=True, interpret=True, **kw))
     q, inv_scale = fk.int8_bank(torch.from_numpy(bank.filters))
-    out = fk.raisr_pass_full_reference(torch.from_numpy(img), q, inv_scale=inv_scale,
-                                       **kw).numpy()
+    out = fk.raisr_pass_full_reference(torch.from_numpy(img), q, tier="int8",
+                                       inv_scale=inv_scale, **kw).numpy()
     assert out.shape == (h, w) and np.isfinite(out).all()
     rows = np.setdiff1d(np.arange(h), [0, h - 2])  # C6 rows under CoBC
     frac, med = frac_and_median(out[rows], ref[rows])
@@ -146,22 +146,22 @@ def test_int8_wrapper_checks_and_cpu_plain_version():
     img = torch.from_numpy(smooth(24, 40, seed=74))
     q, inv_scale = fk.int8_bank(torch.from_numpy(bank.filters))
     kw = _kw(bank, 2)
-    before = fk.INT8_LAUNCHES
-    out = fk.raisr_pass_full(img, q, inv_scale=inv_scale, **kw)
-    assert torch.equal(out, fk.raisr_pass_full_reference(img, q, inv_scale=inv_scale, **kw))
-    assert fk.INT8_LAUNCHES == before
-    k1d, qs, qc = kw["k1d"], kw["qstr"], kw["qcoh"]
+    before = dict(fk.LAUNCHES)
+    out = fk.raisr_pass_full(img, q, tier="int8", inv_scale=inv_scale, **kw)
+    assert torch.equal(out, fk.raisr_pass_full_reference(img, q, tier="int8",
+                                                         inv_scale=inv_scale, **kw))
+    assert fk.LAUNCHES == before
     with pytest.raises(ValueError, match="inv_scale"):
-        fk._check(img, q, k1d, qs, qc, 24, 3, 3, 11, 2, 4)
+        fk._check_tier("int8", q, 4, None, None, 235)
     with pytest.raises(ValueError, match="inv_scale"):
-        fk._check(img, torch.from_numpy(bank.filters), k1d, qs, qc, 24, 3, 3, 11, 2, 4,
-                  inv_scale=inv_scale)
+        fk._check_tier("float32", torch.from_numpy(bank.filters), 4, None, inv_scale, 235)
     with pytest.raises(ValueError, match="4 pixel types"):
-        fk._check(img, q[:216].contiguous(), k1d, qs, qc, 24, 3, 3, 11, 2, 1,
-                  inv_scale=inv_scale)
+        fk._check_tier("int8", q[:216].contiguous(), 1, None, inv_scale, 235)
     with pytest.raises(ValueError, match="8-bit planes"):
-        fk._check(img, q, k1d, qs, qc, 24, 3, 3, 11, 2, 4, inv_scale=inv_scale, max_val=1023)
-    assert fk._check(img, q, k1d, qs, qc, 24, 3, 3, 11, 2, 4, inv_scale=inv_scale) == "int8"
+        fk._check_tier("int8", q, 4, None, inv_scale, 1023)
+    with pytest.raises(ValueError, match="takes a torch.float32 bank"):
+        fk.raisr_pass_full(img, q, inv_scale=inv_scale, **kw)  # the tier is not inferred
+    fk._check_tier("int8", q, 4, None, inv_scale, 235)
 
 
 @pytest.fixture(scope="module")
@@ -193,6 +193,6 @@ def test_engine_int8_matches_jax_engine(yuv):
     # every frame is the plain int8 passes over the engine's banks, exactly
     x = cheap_upscale(torch.from_numpy(y[0]).to(torch.float32), 32, 48, 8)
     for p, bank in enumerate(eng._filters):
-        x = fk.raisr_pass_full_reference(x, bank.filters, inv_scale=bank.inv_scale,
-                                         **_kw(jm.banks[p], 2))
+        x = fk.raisr_pass_full_reference(x, bank.filters, tier="int8",
+                                         inv_scale=bank.inv_scale, **_kw(jm.banks[p], 2))
     assert torch.equal(oy[0], x.to(torch.uint8))

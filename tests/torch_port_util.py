@@ -70,6 +70,26 @@ def smooth_frames(n: int, h: int, w: int, bits: int = 8, seed: int = 0) -> np.nd
     return np.stack([smooth(h, w, bits, seed + i) for i in range(n)]).astype(dtype)
 
 
+def patchwork(h: int, w: int, bits: int = 8, seed: int = 0, blk: int = 16) -> np.ndarray:
+    """A plane of blk x blk blocks, each two crossed gratings of a random
+    angle, frequency and amplitude (log-uniform over three decades), so that
+    the hash's buckets spread over nearly all 216 (a 384 x 512 plane from
+    seeds 1-5 reaches 213-215). Integer-valued float32 in [0, 2^bits)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:blk, 0:blk].astype(np.float64)
+    top = (1 << bits) - 1
+    img = np.zeros((h, w))
+    for by in range(0, h, blk):
+        for bx in range(0, w, blk):
+            th, f = rng.uniform(0, np.pi), rng.uniform(0.1, 0.8)
+            a = top / 2 * np.exp(rng.uniform(np.log(1e-3), 0))
+            b = a * rng.uniform(0, 1)
+            p = (a * np.sin(f * (np.cos(th) * xx + np.sin(th) * yy) + rng.uniform(0, 6))
+                 + b * np.sin(f * (-np.sin(th) * xx + np.cos(th) * yy) + rng.uniform(0, 6)))
+            img[by:by + blk, bx:bx + blk] = (p + top / 2)[:min(blk, h - by), :min(blk, w - bx)]
+    return np.clip(np.round(img), 0, top).astype(np.float32)
+
+
 def jax_tier(js) -> str:
     """The port's tier for raisr_tpu's pass statics (mxu_passes / p_split /
     pcenter / i8): p_split is the bf16 bank against the exact patch, which
