@@ -32,19 +32,24 @@ and for the 1.5x path (the single-phase kernel):
      stacked resize and the 1.5x serving step; with --profile DIR it also
      traces 10 of those steps into DIR/step15_trace.json.
 then the filter kernels, the bf16 tier and the 2.5x route:
- 10. holds the filter apply (apply_filters: filter_apply_kernel<4> on pass 1's
-     8736x3840 stack with the plain hash's buckets and on a 4K plane with
-     uniform buckets in [-8, 232); <1> on the 1.5x path's 6552x2880 stack)
-     and launch A alone (apply_filters_hash, on the stack and on a 4K
-     patchwork plane whose buckets spread over nearly all 216) against their
-     plain versions, and the staged pass (apply_filters, then the epilogue)
-     against the fused pass, bit for bit; times the plain hash,
-     apply_filters, apply_filters_hash and the fused pass on a smooth 4K
-     plane, the patchwork plane and the stack, prints the device time of
-     each kernel of one fused pass (launch A1 the hash, A2 the gather from
-     the resident bank, B the epilogue) from a torch.profiler trace, and
-     how many distinct bank rows and wavefronts A2's quarter-warps read on
-     each 4K plane;
+ 10. holds the filter apply (apply_filters: the gather launch over the
+     caller's int32 buckets, 4 phases on pass 1's 8736x3840 stack with the
+     plain hash's buckets and on a 4K plane with uniform buckets in
+     [-8, 232); 1 phase on the 1.5x path's 6552x2880 stack) and launch A
+     alone (apply_filters_hash, on the stack and on a 4K patchwork plane
+     whose buckets spread over nearly all 216) against their plain versions,
+     and the staged pass (apply_filters, then the plain epilogue) against
+     the fused pass, bit for bit; expects apply_filters to refuse a bank
+     that does not fit in shared memory; holds launch B alone
+     (pass_epilogue) against the plain epilogue on the 4K plane, both
+     stacks and a row stripe, for both blendings, and times it on the plane
+     and the 2x stack beside its bound; times the plain hash, apply_filters,
+     apply_filters_hash and the fused pass on a smooth 4K plane, the
+     patchwork plane and the stack, prints the device time of each kernel
+     of one fused pass (launch A1 the hash, A2 the gather from the resident
+     bank, B the epilogue) from a torch.profiler trace, and how many
+     distinct bank rows and wavefronts A2's quarter-warps read on each 4K
+     plane;
  11. the 8-bit bf16 tier (dtype="auto"): the bf16 kernel against its plain
      version on a 4K plane (both blendings) and a 1620x2880 plane (1 phase);
      both paths through process_batch_device, eager and as a replayed CUDA
@@ -105,6 +110,10 @@ FUZZ_MAX_FRAC = 0.02  # fused vs taps engine, the JAX package's bar
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 DOT_OPS = 2 * 121  # a pixel's 121-tap dot: one multiply and one add per tap
+# the hash launch's float operations a pixel: 2 gradients, 3 products, the
+# 11-tap vertical and horizontal sums of 3 maps (2 * 3 * 11 * 2), 3 scalings
+# and ~30 of eigen-analysis, atan2 and binning
+HASH_OPS = 170
 
 
 def card_line() -> str:
@@ -546,13 +555,16 @@ def kernel_row(name: str, source: str, replaces: str, launches: int, errs,
             "plain_ms": plain_ms, **bnd, "library_ms": library_ms}
 
 
-def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
+def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -> list[dict]:
     """Phase 10: the filter apply (apply_filters, both phase counts) and
     launch A alone (apply_filters_hash) on the 2x and 1.5x paths' own planes,
     each held against its plain version, bit for bit (launch A also on a
-    patchwork plane); the staged pass (apply_filters, then the epilogue)
-    against the fused pass; then times that split launch A into hash and
-    gather, on smooth and patchwork content. Returns three `kernels` rows."""
+    patchwork plane); the staged pass (apply_filters, then the plain
+    epilogue) against the fused pass; the refusal of a bank over shared
+    memory; launch B alone (pass_epilogue) against the plain epilogue and its
+    times; then times that split launch A into hash and gather, on smooth
+    and patchwork content. `b_launches`: launch B's count on the main path.
+    Returns four `kernels` rows."""
     import torch
 
     from raisr_tpu_torch.ops import pipeline
@@ -586,11 +598,11 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
     buckets15 = flk.hash_buckets_reference(stack15, **hkw15)
     torch.cuda.synchronize()
 
-    def finish(x, raw, frame_h, frame_pad):
+    def finish(x, raw, frame_h=0, frame_pad=0, blending=2, **zone):
         return _finish_pass(x, raw, min_val=kw["min_val"], max_val=kw["max_val"],
-                            blending=2, loop_margin=6,
+                            blending=blending, loop_margin=6,
                             col_end=processed_col_end(x.shape[1], 6, True),
-                            frame_h=frame_h, frame_pad=frame_pad)
+                            frame_h=frame_h, frame_pad=frame_pad, **zone)
 
     # the path of this phase: each kernel on the planes the serving paths
     # hand the fused pass, with the counts set to 0 just before
@@ -636,18 +648,54 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
     ):
         errs.append(hold("10 staged", label, got, want))
 
+    # a bank whose rows do not fit in shared memory beside the tile buffers
+    # is refused, never gathered from device memory
+    for pt, n in ((4, 273), (1, 399)):
+        big = torch.zeros((n * pt, 128), device=dev)
+        try:
+            flk.apply_filters(cheap, rand, big, pixel_types=pt, ratio=2 if pt == 4 else 1)
+        except ValueError as e:
+            print(f"phase 10 apply_filters refuses {n} buckets x {pt} phases: {e}")
+        else:
+            raise SystemExit(f"phase 10 failed: a bank of {n} buckets x {pt} phases ran")
+    if (flk.LAUNCHES, flk.SINGLE_LAUNCHES) != counts[:2]:
+        raise SystemExit("phase 10 failed: a refused bank was launched")
+
+    # launch B alone against the plain epilogue: the 4K plane, both stacks
+    # and a row stripe of the plane, both blendings
+    errsb = []
+    raw_plane = flk.apply_filters(cheap, buckets, f)
+    ekw = dict(min_val=kw["min_val"], max_val=kw["max_val"])
+    zone15 = dict(frame_h=c15["skw"]["frame_h"], frame_pad=c15["skw"]["frame_pad"])
+    top, rows = out_h // 4, out_h // 4
+    for blending in (1, 2):
+        for label, x, raw, zone in (
+            (f"one {out_h}x{out_w} plane", cheap, raw_plane, {}),
+            (f"the {tuple(stack.shape)} stack", stack, raw_stack,
+             dict(frame_h=out_h, frame_pad=2 * lr_pad)),
+            (f"the {tuple(stack15.shape)} stack", stack15, raw15, zone15),
+            (f"rows {top}..{top + rows} of the plane as a stripe",
+             cheap[top: top + rows], raw_plane[top: top + rows], dict(row0=top, zone_h=out_h)),
+        ):
+            errsb.append(hold("10 launch B", f"blending {blending}, {label}",
+                              fk.pass_epilogue(x, raw, blending=blending, **ekw, **zone),
+                              finish(x, raw, blending=blending, **zone)))
+
     # times: launch A split into hash and gather, each against its plain version
+    # (the stack with its frame zones, as the 2x path launches it)
     t = {}
+    fused_kw = {"plane": pkw, "patchwork": pkw, "stack": skw}
     for name, x, b in (("plane", cheap, buckets), ("patchwork", patch, buckets_patch),
                        ("stack", stack, buckets_stack)):
+        fkw = fused_kw[name]
         t[name] = dict(
             hash_plain=cuda_ms(lambda: flk.hash_buckets_reference(x, **hkw), 3),
             apply=cuda_ms(lambda: flk.apply_filters(x, b, f), 20, 3),
             apply_plain=cuda_ms(lambda: flk.apply_filters_reference(x, b, f), 3),
             hash_apply=cuda_ms(lambda: flk.apply_filters_hash(x, f, **hkw), 20, 3),
             hash_apply_plain=cuda_ms(lambda: flk.apply_filters_hash_reference(x, f, **hkw), 3),
-            fused=cuda_ms(lambda: fk.raisr_pass_full(x, f, **pkw), 20, 3),
-            fused_plain=cuda_ms(lambda: fk.raisr_pass_full_reference(x, f, **pkw), 3),
+            fused=cuda_ms(lambda: fk.raisr_pass_full(x, f, **fkw), 20, 3),
+            fused_plain=cuda_ms(lambda: fk.raisr_pass_full_reference(x, f, **fkw), 3),
         )
     t["plane"]["apply_rand"] = cuda_ms(lambda: flk.apply_filters(cheap, rand, f), 20, 3)
     t["plane"]["apply_rand_plain"] = cuda_ms(
@@ -657,6 +705,28 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
     ms15_plain = cuda_ms(lambda: flk.apply_filters_reference(cheap15, b15, f15, pixel_types=1), 3)
     ms15_stack = cuda_ms(lambda: flk.apply_filters(stack15, buckets15, f15, pixel_types=1,
                                                    ratio=1), 10, 2)
+    # launch B alone, beside its bound: 12 bytes a pixel and no more
+    tb = {}
+    for name, x, raw, zone in (("plane", cheap, raw_plane, {}),
+                               ("stack", stack, raw_stack,
+                                dict(frame_h=out_h, frame_pad=2 * lr_pad))):
+        for blending in (2, 1):
+            tb[name, blending] = cuda_ms(
+                lambda: fk.pass_epilogue(x, raw, blending=blending, **ekw, **zone), 20, 3)
+        tb[name, "plain"] = cuda_ms(lambda: finish(x, raw, **zone), 3)
+        tb[name, "bound"] = bound(nbytes(x, raw), nbytes(x), 0, "float32")["bound_ms"]
+        # what the same bytes cost PyTorch: one elementwise add of the two
+        # planes into a third (not the epilogue's function; a yardstick of
+        # the memory rate a kernel reaches on these planes)
+        spare = torch.empty_like(x)
+        tb[name, "add"] = cuda_ms(lambda: torch.add(x, raw, out=spare), 20, 3)
+        print(f"phase 10 times on {card}, launch B alone, {name} {tuple(x.shape)}: "
+              f"CountOfBitsChanged {tb[name, 2]:.4f} ms, Randomness {tb[name, 1]:.4f} ms, "
+              f"plain {tb[name, 'plain']:.3f} ms, bound {tb[name, 'bound']:.4f} ms (bytes); "
+              f"torch.add of the same planes {tb[name, 'add']:.4f} ms")
+    a1 = bound(nbytes(cheap), cheap.numel(), cheap.numel() * HASH_OPS, "float32")
+    print(f"phase 10 launch A1's bound on the plane: {a1['bound_ms']:.4f} ms ({a1['bound_by']}: "
+          f"{HASH_OPS} float operations a pixel, the plane in and a byte a pixel out)")
     for name, x in (("plane", cheap), ("patchwork", patch), ("stack", stack)):
         r = t[name]
         print(f"phase 10 times on {card}, {name} {tuple(x.shape)}: plain hash "
@@ -665,7 +735,7 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
               f"apply_filters_hash {r['hash_apply']:.3f} ms (plain {r['hash_apply_plain']:.3f}); "
               f"fused pass {r['fused']:.3f} ms (plain {r['fused_plain']:.3f}); the fused "
               f"pass's kernels (torch.profiler), ms: "
-              f"{pass_breakdown(lambda: fk.raisr_pass_full(x, f, **pkw))}")
+              f"{pass_breakdown(lambda: fk.raisr_pass_full(x, f, **fused_kw[name]))}")
     for name, b in (("plane", buckets), ("patchwork", buckets_patch)):
         rows, waves = quarter_warp_rows(b)
         print(f"phase 10 A2 bank reads on the {name}: {int(torch.unique(b).numel())} buckets, "
@@ -674,17 +744,22 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict) -> list[dict]:
           f"{t['plane']['apply_rand']:.3f} ms (plain {t['plane']['apply_rand_plain']:.3f}); "
           f"single-phase apply_filters {tuple(cheap15.shape)} {ms15:.3f} ms (plain "
           f"{ms15_plain:.3f}), over the {tuple(stack15.shape)} stack {ms15_stack:.3f} ms")
-    src = "raisr_tpu_torch/csrc/filter_kernel.cu"
+    src = "raisr_tpu_torch/csrc/full_kernel.cu"
     return [
         kernel_row("filter_kernel", src, "raisr_tpu/ops/pallas/filter_kernel.py:116",
                    counts[0], errs4, t["plane"]["apply"], t["plane"]["apply_plain"],
                    pass_bound(cheap, buckets, f)),
         kernel_row("filter_kernel_single", src, "raisr_tpu/ops/pallas/filter_kernel.py:374",
                    counts[1], errs1, ms15, ms15_plain, pass_bound(cheap15, b15, f15)),
-        kernel_row("hash_filter", "raisr_tpu_torch/csrc/full_kernel.cu",
+        kernel_row("hash_filter", src,
                    "raisr_tpu/ops/pallas/filter_kernel.py:514", counts[2], errsh,
                    t["plane"]["hash_apply"], t["plane"]["hash_apply_plain"],
                    pass_bound(cheap, f)),
+        # launch B, the last third of the port of _full_kernel: its count on
+        # the main path, its time alone on the 4K plane
+        kernel_row("full_kernel_epilogue", src, "raisr_tpu/ops/pallas/full_kernel.py:82",
+                   b_launches, errsb, tb["plane", 2], tb["plane", "plain"],
+                   bound(nbytes(cheap, raw_plane), nbytes(cheap), 0, "float32")),
     ]
 
 
@@ -1134,9 +1209,11 @@ def main() -> int:
     engine = RaisrEngine(cfg, model, device=dev)
     torch.cuda.synchronize()
     zero(fk.LAUNCHES)
+    fk.EPILOGUE_LAUNCHES = 0
     oy, ou, ov = engine.process_batch_device(y, u, v)
     torch.cuda.synchronize()
     launches = fk.LAUNCHES[("float32", 4)]
+    b_launches = fk.EPILOGUE_LAUNCHES
     if sum(fk.LAUNCHES.values()) != launches:
         raise SystemExit(f"phase 2 failed: the 2x path launched another form {fk.LAUNCHES}")
     ok_shapes = (
@@ -1146,8 +1223,9 @@ def main() -> int:
         and oy.device.type == ou.device.type == ov.device.type == "cuda"
     )
     print(f"phase 2 main path: Y {tuple(oy.shape)} U/V {tuple(ou.shape)} "
-          f"{oy.dtype} on {oy.device}, kernel passes launched {launches}")
-    if not ok_shapes or launches != PASSES:
+          f"{oy.dtype} on {oy.device}, kernel passes launched {launches}, launch B "
+          f"{b_launches}")
+    if not ok_shapes or launches != PASSES or b_launches != PASSES:
         raise SystemExit("phase 2 failed: shapes, dtype, device or launch count")
     if not torch.equal(oy, stack_y.to(torch.uint8)):
         raise SystemExit("phase 2 failed: Y differs from phase 1's stacked launches")
@@ -1206,7 +1284,7 @@ def main() -> int:
     rows = [kernel_row("full_kernel", "raisr_tpu_torch/csrc/full_kernel.cu",
                        "raisr_tpu/ops/pallas/full_kernel.py:82", launches, errs,
                        ms_kernel, ms_plain, pass_bound(cheap, filters[0])), single]
-    rows += run_filter(y, dev, card, model, kw, c15)
+    rows += run_filter(y, dev, card, model, kw, c15, b_launches)
     rows += run_bf16(y, u, v, dev, card, model, kw, dict(oy=oy, ms_step=ms_step), c15,
                      args.profile)
     run_25x(y, dev, card, kw)

@@ -1,10 +1,17 @@
 // Whole RAISR pass for Hopper (sm_90a), every tier of the TPU kernel, for
-// 4-phase (ratio 2) and single-phase (ratio 1.5) filter banks.
+// 4-phase (ratio 2) and single-phase (ratio 1.5) filter banks, and the
+// filter apply to given buckets.
 //
 // Replaces two TPU kernels of raisr_tpu/ops/pallas/full_kernel.py:
 //   _full_kernel        (entered through raisr_pass_pallas_full), 4 phases;
-//   _full_kernel_single (entered through raisr_pass_pallas_full_single), 1.
-// They differ only in how a pixel picks its filter row: bank row
+//   _full_kernel_single (entered through raisr_pass_pallas_full_single), 1;
+// and three of raisr_tpu/ops/pallas/filter_kernel.py:
+//   _band_kernel_fused  (apply_filters_hash_pallas): launches A1 and A2 below;
+//   _band_kernel and _single_kernel (apply_filters_pallas, 4 and 1 phases):
+//                       launch A2 alone over the caller's int32 buckets, where
+//                       a bucket outside [0, n_buckets) gives raw 0, as the TPU
+//                       kernels' select over zero-padded bank rows does.
+// The 4- and 1-phase forms differ only in how a pixel picks its filter row: bank row
 // bucket * 4 + phase for a 4-phase bank, bucket for a single-phase one. Here
 // that is a template parameter (kPhases), not a second copy. The tier is the
 // other (kTier), one case of the same kernel each; the host prepares each
@@ -49,14 +56,15 @@
 //     tile with a 6-pixel halo in shared memory (zero outside the plane),
 //     builds the gradient products and the vertical then horizontal tensor
 //     sums, hashes, and writes each pixel's bucket as one byte.
-//   A2 (gather_resident_kernel<kPhases, kTier>): persistent blocks, each
-//     serving ONE pixel phase with that phase's bank rows resident in shared
-//     memory, walk over tiles of same-phase pixels and write the raw filter
-//     output (dot_rows of raisr_common.cuh).
-//   B (epilogue_kernel): reject, zones, census blend and rounding per pixel,
-//     rebuilding each neighbour's HR value from its raw and cheap values.
-// A1 and A2 on their own are also the port of the TPU's hash + filter kernel
-// _band_kernel_fused (filter_kernel.py, apply_filters_hash_pallas).
+//   A2 (gather_resident_kernel<kPhases, kTier, Bucket>): persistent blocks,
+//     each serving ONE pixel phase with that phase's bank rows resident in
+//     shared memory, walk over tiles of same-phase pixels and write the raw
+//     filter output (dot_rows of raisr_common.cuh). Bucket is uint8_t for
+//     A1's plane and int for a caller's (apply_filters), which is range
+//     checked.
+//   B (epilogue_kernel<kCobc, kVec>): reject, zones, census blend and
+//     rounding. Each pixel's HR value is formed once, on the way in; see the
+//     note above the kernel.
 //
 // What bounds launch A on an H100, and what the design does about it. It
 // moves few bytes (the plane in twice, a byte of bucket out and back, the
@@ -64,7 +72,9 @@
 // ~400 float operations a pixel, so neither bounds it. A2 waits on shared
 // memory (one 128-byte wavefront per SM per clock); A1 on the issue of its
 // instructions and the latency of the hash's IEEE divisions and square
-// roots:
+// roots. Launch B moves 12 bytes a pixel (cheap and raw in, the pass out:
+// ~100 MB a 4K plane, ~30 us) and is bound by them once its census reads
+// come from registers:
 //   - The filter row. A pixel reads 121 taps: 31 16-byte loads at float32,
 //     16 at 16 bits. Gathered from global memory, the 32 lanes of a warp read
 //     up to 32 different rows, so each warp-wide load splits into up to 32
@@ -171,7 +181,6 @@ struct HashParams {
 struct EpilogueParams {
   float min_val;
   float max_val;
-  int blending;  // 1 = Randomness, 2 = CountOfBitsChanged
   int col_end;
   int frame_h;
   int frame_pad;
@@ -379,11 +388,14 @@ __device__ __forceinline__ void group_sync(int group) {
 // (bucket * kPhases + phase) once, then each of its groups walks over the
 // phase's tiles, kGroups * (gridDim.x / kPhases) tiles apart. pbias
 // (kPCenter) is the bank's per-row bias, inv_scale (kInt8) its 1/scale; the
-// other tiers ignore them.
-template <int kPhases, Tier kTier>
+// other tiers ignore them. Bucket is the element of the bucket plane:
+// uint8_t, A1's, every value a row of the bank; int, a caller's, where a
+// value outside [0, n_buckets) gives raw 0 (its dot runs over row 0 and is
+// dropped, so no address outside the staged rows is formed).
+template <int kPhases, Tier kTier, typename Bucket>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 gather_resident_kernel(const float* __restrict__ cheap,
-                       const uint8_t* __restrict__ buckets,
+                       const Bucket* __restrict__ buckets,
                        const typename TierTypes<kTier>::Bank* __restrict__ filters,
                        const float* __restrict__ pbias, float inv_scale,
                        float* __restrict__ raw, int h, int w, int n_buckets) {
@@ -392,6 +404,7 @@ gather_resident_kernel(const float* __restrict__ cheap,
   constexpr int kStep = kPhases == 4 ? 2 : 1;
   using Shape = TileShape<kStep>;
   constexpr int kRowBytes = kSmemRowBytes<TF>;
+  constexpr bool kChecked = !std::is_same<Bucket, uint8_t>::value;
 
   // the phase's pixels: rows r0 + kStep * i, columns c0 + kStep * j, where
   // a pixel's phase is ((r-5) mod 2, (c-5) mod 2)
@@ -473,11 +486,17 @@ gather_resident_kernel(const float* __restrict__ cheap,
     const int r = r0 + kStep * (kTileRows * (t / tiles_c) + kPix * warp);
     const int c = c0 + kStep * (kTileCols * (t % tiles_c) + lane);
     bool inside[kPix];
+    bool held[kPix];  // the pixel's bucket is a row of the bank
     int bucket[kPix];
 #pragma unroll
     for (int p = 0; p < kPix; ++p) {
       inside[p] = r + kStep * p < h && c < w;
       bucket[p] = inside[p] ? buckets[static_cast<size_t>(r + kStep * p) * w + c] : 0;
+      held[p] = true;
+      if constexpr (kChecked) {
+        held[p] = bucket[p] >= 0 && bucket[p] < n_buckets;
+        bucket[p] = held[p] ? bucket[p] : 0;
+      }
     }
 
     group_sync(group);  // the group's dot of the previous tile is done with buffer buf ^ 1
@@ -517,12 +536,46 @@ gather_resident_kernel(const float* __restrict__ cheap,
       if (!inside[p]) continue;
       if constexpr (kTier == Tier::kPCenter) v[p] = v[p] + s_bias[bucket[p]];
       if constexpr (kTier == Tier::kInt8) v[p] = v[p] * inv_scale;
-      raw[static_cast<size_t>(r + kStep * p) * w + c] = v[p];
+      raw[static_cast<size_t>(r + kStep * p) * w + c] = held[p] ? v[p] : 0.0f;
     }
   }
 }
 
 // -- B: the epilogue -----------------------------------------------------------
+
+// What launch B computes per pixel, as ops/epilogue.py _finish_pass:
+//   hr    = raw where it is in range (exclusive) and the pixel is in the
+//           processed zone, else cheap;
+//   count = CountOfBitsChanged: the 3x3 neighbours n with
+//           (cheap[n] < cheap) != (hr[n] < hr); Randomness: those with
+//           cheap[n] < cheap; a neighbour outside the plane reads 0 in both;
+//   out   = clamp(floor(w * a + (1 - w) * b + 0.5)) with w = count / 8 and
+//           (a, b) = (cheap, hr) or (hr, cheap), inside the blend zone, else
+//           cheap.
+// What bounds it on an H100: its 12 bytes a pixel, once nothing else is in
+// the way. A thread that serves one pixel and rebuilds each neighbour's hr
+// (nine range and zone tests, ten run-time modulos and eighteen scalar loads
+// a pixel) is bound by the issue of its instructions, at 3.5x its bytes. So:
+//   - a thread owns 4 pixels of a row, one 16-byte load of cheap and of raw
+//     and one 16-byte store; where the row pitch or a pointer is not a
+//     multiple of 16 bytes (kVec false) the same code moves them one by one;
+//   - a warp (128 columns) walks down kEpiRows rows with the cheap and hr
+//     values of three rows in registers, so every census read is a register
+//     read; the columns beside a thread's four come from the neighbour lanes
+//     by shuffle, and only the warp's two edge lanes load theirs;
+//   - hr is formed once per pixel, as its row comes in; the row's frame
+//     coordinate (one modulo a warp, then counted on) and the column tests
+//     (once a thread) are never repeated per neighbour;
+//   - Randomness (kCobc false) reads raw at the pixel alone: no raw halo.
+// The count is an integer, so it is exact in any order; w, the blend and the
+// rounding keep the plain version's order of float operations.
+
+constexpr int kEpiVec = 4;                      // pixels a thread: one 16-byte access
+constexpr int kEpiCols = 32 * kEpiVec;          // columns a warp covers
+constexpr int kEpiRows = 16;                    // rows a warp walks down
+constexpr int kEpiWarps = 8;                    // warps a block, one below the other
+constexpr int kEpiWin = kEpiVec + 2;            // a row's window: the four and one each side
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Frame coordinate of a global row: identity for one frame; for a stack of
 // frame_h-row frames with 2*frame_pad guard rows between them, guard rows map
@@ -534,81 +587,180 @@ __device__ __forceinline__ int frame_row(int g, const EpilogueParams& p) {
   return m < 0 ? m + period : m;
 }
 
-// HR input of the census blend at an in-plane pixel: the raw filter output
-// where it is in range and the pixel is in the processed zone, else cheap.
-__device__ __forceinline__ float hr_value(const float* __restrict__ cheap,
-                                          const float* __restrict__ raw,
-                                          int r, int c, int w,
+// hr of one pixel from its raw and cheap values; `proc`: in the processed zone
+__device__ __forceinline__ float hr_value(float v, float l, bool proc,
                                           const EpilogueParams& p) {
-  const size_t o = static_cast<size_t>(r) * w + c;
-  const float v = raw[o];
-  const int fr = frame_row(r + p.row0, p);
-  const bool keep = v > p.min_val && v < p.max_val;
-  const bool proc = fr >= kLoopMargin && fr < p.eff_h - kLoopMargin &&
-                    c >= kLoopMargin && c < p.col_end;
-  return keep && proc ? v : cheap[o];
+  return (v > p.min_val && v < p.max_val && proc) ? v : l;
 }
 
-__global__ void __launch_bounds__(kTileW * kTileH)
-epilogue_kernel(const float* __restrict__ cheap, const float* __restrict__ raw,
-                float* __restrict__ out, int h, int w, EpilogueParams p) {
-  const int c = blockIdx.x * kTileW + threadIdx.x;
-  const int r = blockIdx.y * kTileH + threadIdx.y;
-  if (r >= h || c >= w) return;
-  const size_t o = static_cast<size_t>(r) * w + c;
-  const float lr_c = cheap[o];
-  const int fr = frame_row(r + p.row0, p);
-  const bool cobc = p.blending == 2;
-  const bool zone =
-      cobc ? (fr >= 1 && fr < p.eff_h - 1 && c >= 1 && c < w - 1)
-           : (fr >= kLoopMargin && fr < p.eff_h - kLoopMargin &&
-              c >= kLoopMargin && c < p.col_end);
-  if (!zone) {
-    out[o] = lr_c;
-    return;
-  }
-  const float hr_c = hr_value(cheap, raw, r, c, w, p);
-  float count = 0.0f;
-  for (int dr = -1; dr <= 1; ++dr) {
-    for (int dc = -1; dc <= 1; ++dc) {
-      if (dr == 0 && dc == 0) continue;
-      const int rn = r + dr;
-      const int cn = c + dc;
-      const bool inside = rn >= 0 && rn < h && cn >= 0 && cn < w;
-      // outside the plane both census inputs read zero
-      const float ln = inside ? cheap[static_cast<size_t>(rn) * w + cn] : 0.0f;
-      const float lbit = ln < lr_c ? 1.0f : 0.0f;
-      if (cobc) {
-        const float hn = inside ? hr_value(cheap, raw, rn, cn, w, p) : 0.0f;
-        const float hbit = hn < hr_c ? 1.0f : 0.0f;
-        count = count + (lbit != hbit ? 1.0f : 0.0f);
-      } else {
-        count = count + lbit;
+// Row r of the plane into a window: cheap L and hr H at columns c0-1 .. c0+4
+// (index 0 .. 5), zero outside the plane. `rproc`: the row is in the
+// processed zone; bit k of `proc_cols`: column c0 - 1 + k is. Randomness
+// (kCobc false) needs hr at the thread's own four columns of the rows it
+// writes: `with_raw` false (a halo row) leaves H alone, and H's two side
+// columns are never filled.
+template <bool kCobc, bool kVec>
+__device__ __forceinline__ void load_row(const float* __restrict__ cheap,
+                                         const float* __restrict__ raw, int r, int c0,
+                                         int lane, int h, int w, bool rproc,
+                                         unsigned proc_cols, bool with_raw,
+                                         const EpilogueParams& p, float (&L)[kEpiWin],
+                                         float (&H)[kEpiWin]) {
+  const bool row_in = r >= 0 && r < h;
+  const size_t base = static_cast<size_t>(row_in ? r : 0) * w;
+  float l[kEpiVec] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float v[kEpiVec] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (kVec) {
+    if (row_in && c0 < w) {
+      const float4 t = *reinterpret_cast<const float4*>(cheap + base + c0);
+      l[0] = t.x, l[1] = t.y, l[2] = t.z, l[3] = t.w;
+      if (with_raw) {
+        const float4 u = *reinterpret_cast<const float4*>(raw + base + c0);
+        v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kEpiVec; ++k) {
+      if (row_in && c0 + k < w) {
+        l[k] = cheap[base + c0 + k];
+        if (with_raw) v[k] = raw[base + c0 + k];
       }
     }
   }
-  const float weight = count / 8.0f;
-  const float val = cobc ? weight * lr_c + (1.0f - weight) * hr_c
-                         : weight * hr_c + (1.0f - weight) * lr_c;
-  out[o] = fminf(fmaxf(floorf(val + 0.5f), p.min_val), p.max_val);
+#pragma unroll
+  for (int k = 0; k < kEpiVec; ++k) {
+    L[k + 1] = l[k];
+    if (with_raw) H[k + 1] = hr_value(v[k], l[k], rproc && ((proc_cols >> (k + 1)) & 1u), p);
+  }
+  // the columns beside the four: the neighbour lanes' outer values; the
+  // warp's edge lanes load theirs
+  L[0] = __shfl_up_sync(kFullWarp, l[kEpiVec - 1], 1);
+  L[kEpiWin - 1] = __shfl_down_sync(kFullWarp, l[0], 1);
+  if (kCobc) {
+    H[0] = __shfl_up_sync(kFullWarp, H[kEpiVec], 1);
+    H[kEpiWin - 1] = __shfl_down_sync(kFullWarp, H[1], 1);
+  }
+  if (lane == 0 || lane == 31) {
+    const int k = lane == 0 ? 0 : kEpiWin - 1;
+    const int c = c0 - 1 + k;
+    const bool in = row_in && c >= 0 && c < w;
+    const float le = in ? cheap[base + c] : 0.0f;
+    float he = 0.0f;
+    if (kCobc) he = hr_value(in ? raw[base + c] : 0.0f, le, rproc && ((proc_cols >> k) & 1u), p);
+    if (lane == 0) {
+      L[0] = le;
+      if (kCobc) H[0] = he;
+    } else {
+      L[kEpiWin - 1] = le;
+      if (kCobc) H[kEpiWin - 1] = he;
+    }
+  }
+}
+
+// One block: kEpiWarps warps, warp i on rows (blockIdx.y * kEpiWarps + i) *
+// kEpiRows .. + kEpiRows - 1, columns blockIdx.x * kEpiCols .. + kEpiCols - 1.
+// No thread leaves before its warp's last shuffle. Four blocks a SM (64
+// registers a thread): more rows in flight hide the loads' latency, which
+// is what a kernel this close to its bytes waits on. The one-by-one form
+// needs more registers for its addresses and gets three blocks' worth.
+template <bool kCobc, bool kVec>
+__global__ void __launch_bounds__(32 * kEpiWarps, kVec ? 4 : 3)
+epilogue_kernel(const float* __restrict__ cheap, const float* __restrict__ raw,
+                float* __restrict__ out, int h, int w, EpilogueParams p) {
+  const int lane = threadIdx.x % 32;
+  const int c0 = (blockIdx.x * 32 + lane) * kEpiVec;
+  const int r0 = (blockIdx.y * kEpiWarps + threadIdx.x / 32) * kEpiRows;
+  if (r0 >= h) return;  // the whole warp
+
+  // the column tests, once: bit k is column c0 - 1 + k
+  unsigned proc_cols = 0, zone_cols = 0;
+#pragma unroll
+  for (int k = 0; k < kEpiWin; ++k) {
+    const int c = c0 - 1 + k;
+    const bool proc = c >= kLoopMargin && c < p.col_end;
+    proc_cols |= (proc ? 1u : 0u) << k;
+    zone_cols |= ((kCobc ? (c >= 1 && c < w - 1) : proc) ? 1u : 0u) << k;
+  }
+
+  const int period = p.frame_h + 2 * p.frame_pad;
+  int fr = frame_row(r0 - 1 + p.row0, p);  // of the row coming in
+  float L[3][kEpiWin], H[3][kEpiWin];
+  bool rzone[3];
+#pragma unroll
+  for (int i = 0; i < kEpiRows + 2; ++i) {
+    // row r0 - 1 + i comes into slot i % 3
+    const bool rproc = fr >= kLoopMargin && fr < p.eff_h - kLoopMargin;
+    rzone[i % 3] = kCobc ? (fr >= 1 && fr < p.eff_h - 1) : rproc;
+    load_row<kCobc, kVec>(cheap, raw, r0 - 1 + i, c0, lane, h, w, rproc, proc_cols,
+                          kCobc || (i >= 1 && i <= kEpiRows), p, L[i % 3], H[i % 3]);
+    fr = fr + 1;
+    if (p.frame_h > 0 && fr == period) fr = 0;
+    if (i < 2) continue;
+
+    // row r = r0 + i - 2 has its three rows: slots (i - 2, i - 1, i) % 3
+    const int r = r0 + i - 2;
+    if (r >= h) break;  // the whole warp
+    const float(&La)[kEpiWin] = L[(i - 2) % 3];
+    const float(&Lb)[kEpiWin] = L[(i - 1) % 3];
+    const float(&Lc)[kEpiWin] = L[i % 3];
+    const float(&Ha)[kEpiWin] = H[(i - 2) % 3];
+    const float(&Hb)[kEpiWin] = H[(i - 1) % 3];
+    const float(&Hc)[kEpiWin] = H[i % 3];
+    float o[kEpiVec];
+#pragma unroll
+    for (int k = 0; k < kEpiVec; ++k) {
+      const int j = k + 1;
+      const float lc = Lb[j];
+      const float hc = Hb[j];
+      int count = 0;
+#pragma unroll
+      for (int dj = -1; dj <= 1; ++dj) {
+        if (kCobc) {
+          count += ((La[j + dj] < lc) != (Ha[j + dj] < hc)) ? 1 : 0;
+          count += ((Lc[j + dj] < lc) != (Hc[j + dj] < hc)) ? 1 : 0;
+          if (dj != 0) count += ((Lb[j + dj] < lc) != (Hb[j + dj] < hc)) ? 1 : 0;
+        } else {
+          count += La[j + dj] < lc ? 1 : 0;
+          count += Lc[j + dj] < lc ? 1 : 0;
+          if (dj != 0) count += Lb[j + dj] < lc ? 1 : 0;
+        }
+      }
+      const float weight = static_cast<float>(count) / 8.0f;
+      const float val = kCobc ? weight * lc + (1.0f - weight) * hc
+                              : weight * hc + (1.0f - weight) * lc;
+      const bool zone = rzone[(i - 1) % 3] && ((zone_cols >> j) & 1u);
+      o[k] = zone ? fminf(fmaxf(floorf(val + 0.5f), p.min_val), p.max_val) : lc;
+    }
+    float* dst = out + static_cast<size_t>(r) * w + c0;
+    if (kVec) {
+      if (c0 < w) *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kEpiVec; ++k) {
+        if (c0 + k < w) dst[k] = o[k];
+      }
+    }
+  }
 }
 
 // -- launches ------------------------------------------------------------------
 
-using GatherLaunch = cudaError_t (*)(const float*, const uint8_t*, const void*, const float*,
+template <typename Bucket>
+using GatherLaunch = cudaError_t (*)(const float*, const Bucket*, const void*, const float*,
                                      float, float*, int, int, int, int, cudaStream_t);
 
 // Launch A2: one persistent block a SM (a block of 1024 threads at 59-64
 // registers fills the register file), a whole multiple of kPhases, and no
 // more than the tiles of a phase need. A block that cannot get its shared
 // memory fails cudaFuncSetAttribute or the launch, and the error returns.
-template <int kPhases, Tier kTier>
-cudaError_t launch_gather(const float* cheap, const uint8_t* buckets, const void* filters,
+template <int kPhases, Tier kTier, typename Bucket>
+cudaError_t launch_gather(const float* cheap, const Bucket* buckets, const void* filters,
                           const float* pbias, float inv_scale, float* raw, int h, int w,
                           int n_buckets, int device, cudaStream_t st) {
   constexpr int kStep = kPhases == 4 ? 2 : 1;
   const size_t smem = GatherSmem<kPhases, kTier>::bytes(n_buckets);
-  cudaError_t err = cudaFuncSetAttribute(&gather_resident_kernel<kPhases, kTier>,
+  cudaError_t err = cudaFuncSetAttribute(&gather_resident_kernel<kPhases, kTier, Bucket>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -621,7 +773,7 @@ cudaError_t launch_gather(const float* cheap, const uint8_t* buckets, const void
   const long long tiles = ((n_r + kTileRows - 1) / kTileRows) * ((n_c + kTileCols - 1) / kTileCols);
   const long long per_phase =
       std::max(1LL, std::min<long long>(sms / kPhases, (tiles + kGroups - 1) / kGroups));
-  gather_resident_kernel<kPhases, kTier>
+  gather_resident_kernel<kPhases, kTier, Bucket>
       <<<static_cast<int>(per_phase * kPhases), kBlockThreads, smem, st>>>(
           cheap, buckets, static_cast<const typename TierTypes<kTier>::Bank*>(filters), pbias,
           inv_scale, raw, h, w, n_buckets);
@@ -671,26 +823,29 @@ extern "C" int raisr_full_hash_filter(
   hash_bucket_kernel<<<grid, kHashThreads, 0, st>>>(cheap, buckets, h, w, hp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  GatherLaunch launch = nullptr;
+  GatherLaunch<uint8_t> launch = nullptr;
   switch (static_cast<Tier>(tier)) {
     case Tier::kF32:
-      launch = four ? &launch_gather<4, Tier::kF32> : &launch_gather<1, Tier::kF32>;
+      launch = four ? &launch_gather<4, Tier::kF32, uint8_t> : &launch_gather<1, Tier::kF32, uint8_t>;
       break;
     case Tier::kBF16:
-      launch = four ? &launch_gather<4, Tier::kBF16> : &launch_gather<1, Tier::kBF16>;
+      launch = four ? &launch_gather<4, Tier::kBF16, uint8_t>
+                    : &launch_gather<1, Tier::kBF16, uint8_t>;
       break;
     case Tier::kPCenter:
-      launch = &launch_gather<4, Tier::kPCenter>;
+      launch = &launch_gather<4, Tier::kPCenter, uint8_t>;
       break;
     case Tier::kInt8:
-      launch = &launch_gather<4, Tier::kInt8>;
+      launch = &launch_gather<4, Tier::kInt8, uint8_t>;
       break;
   }
   return static_cast<int>(
       launch(cheap, buckets, filters, pbias, inv_scale, raw, h, w, n_buckets, device, st));
 }
 
-// Launch B. Returns a cudaError_t value (0 on success).
+// Launch B: out = the pass epilogue of (cheap, raw), all [h, w] float32;
+// blending 1 = Randomness, 2 = CountOfBitsChanged. Returns a cudaError_t
+// value (0 on success).
 extern "C" int raisr_full_epilogue(
     const float* cheap, const float* raw, float* out, int h, int w,
     float min_val, float max_val, int blending, int col_end, int frame_h,
@@ -700,11 +855,37 @@ extern "C" int raisr_full_epilogue(
   }
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
-  const EpilogueParams p{min_val, max_val, blending, col_end,
-                         frame_h, frame_pad, row0, eff_h};
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
-  epilogue_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      cheap, raw, out, h, w, p);
+  const EpilogueParams p{min_val, max_val, col_end, frame_h, frame_pad, row0, eff_h};
+  const dim3 grid((w + kEpiCols - 1) / kEpiCols,
+                  (h + kEpiWarps * kEpiRows - 1) / (kEpiWarps * kEpiRows));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 16-byte accesses need every row of every plane to start on 16 bytes
+  const bool vec = w % kEpiVec == 0 &&
+                   (reinterpret_cast<uintptr_t>(cheap) | reinterpret_cast<uintptr_t>(raw) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  auto kernel = blending == 2 ? (vec ? &epilogue_kernel<true, true> : &epilogue_kernel<true, false>)
+                              : (vec ? &epilogue_kernel<false, true> : &epilogue_kernel<false, false>);
+  kernel<<<grid, 32 * kEpiWarps, 0, st>>>(cheap, raw, out, h, w, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The filter apply to given buckets: launch A2 over the caller's int32
+// bucket plane [h, w]; a bucket outside [0, n_buckets) gives raw 0. filters
+// is [n_buckets * phases, 128] float32, 16-byte aligned; phases is 4 or 1.
+// The phase's n_buckets rows must fit in a block's shared memory beside the
+// tile buffers (GatherSmem::bytes); if they do not, the launch fails and
+// the error returns. Returns a cudaError_t value (0 on success).
+extern "C" int raisr_filter_apply(const float* cheap, const int* buckets,
+                                  const float* filters, float* raw, int h,
+                                  int w, int phases, int n_buckets, int device,
+                                  void* stream) {
+  if (h <= 0 || w <= 0 || (phases != 1 && phases != 4) || n_buckets <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  GatherLaunch<int> launch =
+      phases == 4 ? &launch_gather<4, Tier::kF32, int> : &launch_gather<1, Tier::kF32, int>;
+  return static_cast<int>(launch(cheap, buckets, filters, nullptr, 1.0f, raw, h, w, n_buckets,
+                                 device, static_cast<cudaStream_t>(stream)));
 }

@@ -1,25 +1,22 @@
 // Shared pieces of the raisr_tpu_torch CUDA kernels (full_kernel.cu,
-// filter_kernel.cu, probe_s16.cu): constants, the per-pixel dot of a filter
-// row with its patch, and DeviceGuard.
+// probe_s16.cu): constants, the per-pixel dot of a filter row with its
+// patch, and DeviceGuard.
 //
 // dot_rows is the one place where a pixel's 121-tap filter row meets its
-// 11x11 patch. The fused pass's gather launch (full_kernel.cu
-// gather_resident_kernel, rows from a bank resident in shared memory) and
-// the filter-apply kernel (filter_kernel.cu filter_apply_kernel, rows
-// gathered from global memory through gather_dot) both call it, so they sum
-// taps 0..120 in the same order, each product and sum rounded on its own
-// (nvcc --fmad=false), as the plain PyTorch version (ops/filter_apply.py
-// apply_filters_taps) does. An int16 row (the int8 tier) sums exactly in
-// int32, so its order does not matter.
+// 11x11 patch. Every filter dot of the port runs through it, from a bank
+// resident in shared memory (full_kernel.cu gather_resident_kernel: the
+// fused pass and apply_filters_hash with the hash launch's buckets,
+// apply_filters with the caller's), so they all sum taps 0..120 in the same
+// order, each product and sum rounded on its own (nvcc --fmad=false), as
+// the plain PyTorch version (ops/filter_apply.py apply_filters_taps) does.
+// An int16 row (the int8 tier) sums exactly in int32, so its order does not
+// matter.
 //
 // What bounds a dot on an H100 is how its row arrives, not its arithmetic
-// (121 multiplies and adds). From global memory (gather_dot) a row is 31
-// 16-byte loads at float32 and 16 at 16 bits, and the 32 lanes of a warp
-// read up to 32 different rows, so each warp-wide load splits into up to
-// 32 sectors through L1 from L2. From shared memory (the gather launch) the
-// same loads are served a quarter-warp at a time, and rows that coincide
-// are broadcasts; see full_kernel.cu for the layout that spreads the rest
-// over the banks.
+// (121 multiplies and adds): 31 16-byte loads at float32 and 16 at 16 bits.
+// From shared memory they are served a quarter-warp at a time, and rows
+// that coincide are broadcasts; see full_kernel.cu for the layout that
+// spreads the rest over the banks.
 
 #pragma once
 
@@ -36,11 +33,6 @@ constexpr int kMargin = kPatch / 2;       // patch margin, 5
 constexpr int kLoopMargin = kMargin + 1;  // processed-zone margin, 6
 constexpr int kTaps = kPatch * kPatch;    // 121
 constexpr int kFilterStride = 128;        // taps per bank row in global memory, zero-padded
-
-// output tile of one block of the per-pixel kernels: 32 x 8 threads, one
-// pixel each
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
 
 // A bank row's 16-byte groups: kN taps each, tap e of a group as the dot
 // reads it (float32; bfloat16 widened exactly, its bits the high half;
@@ -118,19 +110,6 @@ __device__ __forceinline__ void dot_rows(float (&out)[P], Group group, Patch pat
       out[p] = acc[p];
     }
   }
-}
-
-// One dot: a row in global memory (16-byte aligned), read through the
-// read-only path, and a patch whose top-left pixel is `patch` in a
-// shared-memory plane with rows kStride values apart.
-template <int kStride, typename TF>
-__device__ __forceinline__ float gather_dot(const TF* __restrict__ frow,
-                                            const typename Taps<TF>::Acc* patch) {
-  const uint4* g = reinterpret_cast<const uint4*>(frow);
-  float out[1];
-  dot_rows<TF, 1, 0>(out, [&](int, int q) { return __ldg(g + q); },
-                     [&](int rho, int dx) { return patch[rho * kStride + dx]; });
-  return out[0];
 }
 
 // Makes `device` current for one launch and restores the caller's device

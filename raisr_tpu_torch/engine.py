@@ -18,6 +18,7 @@ import torch
 
 from raisr_tpu_torch.config import RaisrConfig, Backend, RaisrError
 from raisr_tpu_torch.model.loader import load_model, RaisrModel, bank_tensors
+from raisr_tpu_torch.ops.cuda.filter_kernel import check_bank_limits
 from raisr_tpu_torch.ops.pipeline import (
     pass_banks,
     pass_statics,
@@ -58,6 +59,23 @@ def _resolve_backend(cfg: RaisrConfig, device: torch.device) -> str:
     if cfg.backend == Backend.PALLAS:
         return "pallas"
     return "pallas" if device.type == "cuda" else "taps"
+
+
+def check_cuda_bank(model: RaisrModel) -> None:
+    """Refuses a bank the CUDA pass cannot hash (`check_bank_limits`: more
+    than 256 buckets, or more than 8 strength or coherence edges) with a
+    RaisrError that names the limit. The engine asks at construction, for the
+    fused backend on a CUDA device, so no pass or graph capture meets the
+    refusal later; the taps backend and the CPU take any bank."""
+    for i, bank in enumerate(model.banks):
+        try:
+            check_bank_limits(model.qangle, model.qstrength, model.qcoherence,
+                              len(bank.qstr), len(bank.qcoh))
+        except ValueError as e:
+            raise RaisrError(
+                f"the fused backend on a CUDA device cannot serve the bank of pass "
+                f"{i + 1}: {e}."
+            ) from e
 
 
 @dataclasses.dataclass
@@ -132,6 +150,8 @@ class RaisrEngine:
                 "serving is not ported to raisr_tpu_torch yet (ROADMAP A13)."
             )
         self._backend = _resolve_backend(cfg, self.device)
+        if self.device.type == "cuda" and self._backend == "pallas":
+            check_cuda_bank(self.model)
         self._statics = pass_statics(cfg, self.model, self._backend)
         self._np_out_dtype = np.uint8 if cfg.bits == 8 else np.uint16
         self._out_dtype = torch.uint8 if cfg.bits == 8 else torch.uint16

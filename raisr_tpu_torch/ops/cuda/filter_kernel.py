@@ -2,13 +2,18 @@
 wrappers and their plain PyTorch versions. The output is the raw filtered
 plane, with no pass epilogue.
 
-Port of raisr_tpu/ops/pallas/filter_kernel.py:
+Port of raisr_tpu/ops/pallas/filter_kernel.py, onto the kernels of
+csrc/full_kernel.cu:
   - apply_filters_pallas (_band_kernel, 4 phases; _single_kernel, 1 phase)
-    -> `apply_filters`, csrc/filter_kernel.cu filter_apply_kernel<4> / <1>;
+    -> `apply_filters`: the gather launch alone,
+    gather_resident_kernel<4 | 1, Tier::kF32, int>, over the caller's int32
+    buckets (a bucket outside [0, n_buckets) gives 0). The phase's rows are
+    resident in a block's shared memory, so the bank's size is bounded
+    (`gather_smem_bytes`, `MAX_SMEM_BYTES`): a larger bank is refused;
   - apply_filters_hash_pallas (_band_kernel_fused, hash + filter, 4 phases)
-    -> `apply_filters_hash`, launch A of csrc/full_kernel.cu
-    (hash_bucket_kernel, then gather_resident_kernel<4, Tier::kF32>), which
-    the fused pass runs too.
+    -> `apply_filters_hash`: launch A (hash_bucket_kernel, then
+    gather_resident_kernel<4, Tier::kF32, uint8_t>), which the fused pass
+    runs too.
 The TPU knobs (tb2, rowbatch, mxu_passes, interpret) have no meaning here and
 are gone: the card computes plain float32 at every bit depth, so the 10-bit
 case (mxu_passes=3 on the TPU) needs nothing extra.
@@ -28,16 +33,69 @@ import torch
 from raisr_tpu_torch.ops import hashing
 from raisr_tpu_torch.ops.filter_apply import apply_filters_taps
 
-LAUNCHES = 0  # apply_filters, 4 phases, through filter_apply_kernel<4>
-SINGLE_LAUNCHES = 0  # apply_filters, 1 phase, through filter_apply_kernel<1>
+LAUNCHES = 0  # apply_filters, 4 phases, through the gather launch
+SINGLE_LAUNCHES = 0  # apply_filters, 1 phase, through the gather launch
 HASH_LAUNCHES = 0  # apply_filters_hash, through launch A
 
 FILTER_STRIDE = 128  # taps per bank row, zero-padded
-MAX_EDGES = 8
+N_TAPS = 121
+MAX_EDGES = 8  # strength / coherence edges the hash launch takes (kMaxEdges)
 MAX_BUCKETS = 256  # launch A's bucket plane is uint8 (csrc/full_kernel.cu)
+# the dynamic shared memory a block can ask for on Hopper (227 KB)
+MAX_SMEM_BYTES = 232_448
 # the pcenter tier's patch centre (raisr_tpu's pass_statics: pcenter=512.0);
 # csrc/full_kernel.cu kPCenterValue
 PCENTER = 512.0
+
+
+def check_bank_limits(qangle: int, qstrength: int, qcoherence: int,
+                      n_qstr: int, n_qcoh: int) -> None:
+    """The CUDA pass's limits on a bank's hash: at most MAX_BUCKETS buckets
+    (the hash launch hands each pixel's bucket on as one byte) and at most
+    MAX_EDGES strength and coherence edges (its parameter block). Raises a
+    ValueError that names the limit; plain Python, so every device can ask."""
+    n_buckets = qangle * qstrength * qcoherence
+    if not 0 < n_buckets <= MAX_BUCKETS:
+        raise ValueError(
+            f"the CUDA kernel hands each pixel's bucket on as one byte: at most "
+            f"{MAX_BUCKETS} buckets, got {qangle} x {qstrength} x {qcoherence} = {n_buckets}"
+        )
+    if n_qstr > MAX_EDGES or n_qcoh > MAX_EDGES:
+        raise ValueError(
+            f"the CUDA kernel takes at most {MAX_EDGES} strength and {MAX_EDGES} coherence "
+            f"edges, got {n_qstr} and {n_qcoh}"
+        )
+
+
+def gather_smem_bytes(n_buckets: int, pixel_types: int) -> int:
+    """Dynamic shared memory of one block of the float32 gather launch
+    (csrc/full_kernel.cu GatherSmem::bytes): the phase's `n_buckets` rows,
+    taps 0..120 in an odd number of 16-byte groups (31: 496 B a row), then
+    two tile buffers for each of the block's 4 groups: the patch region of
+    16 x 32 same-phase pixels, 41 rows of 74 words for 4 phases, 26 of 42
+    for 1."""
+    row_bytes = 16 * (-(-N_TAPS // 4) | 1)
+    step = 2 if pixel_types == 4 else 1
+    tile_rows, tile_cols = step * 15 + 11, step * 31 + 11
+    tile_words = tile_rows * step * (-(-tile_cols // step))
+    return n_buckets * row_bytes + 2 * 4 * tile_words * 4
+
+
+def check_gather_smem(n_buckets: int, pixel_types: int) -> None:
+    """apply_filters' size rule: the float32 rows of one phase must fit in a
+    block's shared memory beside the tile buffers (at most 272 buckets with
+    4 phases, 398 with 1). Raises a ValueError that names the byte counts;
+    there is no route that reads the rows from device memory instead."""
+    if n_buckets < 1:
+        raise ValueError(f"the bank holds no bucket of {pixel_types} pixel types")
+    need = gather_smem_bytes(n_buckets, pixel_types)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"a bank of {n_buckets} buckets needs {need} bytes of shared memory a block "
+            f"({n_buckets} float32 rows of 496 bytes and "
+            f"{gather_smem_bytes(0, pixel_types)} bytes of tile buffers); the card gives "
+            f"{MAX_SMEM_BYTES}"
+        )
 
 
 def _check_phases(pixel_types: int, ratio: int | None = None) -> None:
@@ -151,13 +209,7 @@ def _check_hash_args(k1d, qstr, qcoh, qangle, qstrength, qcoherence, patch_size)
         raise ValueError(f"the CUDA kernel takes patch_size 11, got {patch_size}")
     if len(qstr) != qstrength - 1 or len(qcoh) != qcoherence - 1:
         raise ValueError("qstr/qcoh must hold qstrength-1 / qcoherence-1 edges")
-    if len(qstr) > MAX_EDGES or len(qcoh) > MAX_EDGES:
-        raise ValueError(f"at most {MAX_EDGES} strength/coherence edges")
-    if not 0 < qangle * qstrength * qcoherence <= MAX_BUCKETS:
-        raise ValueError(
-            f"the CUDA kernel hands each pixel's bucket on as one byte: at most "
-            f"{MAX_BUCKETS} buckets, got {qangle} x {qstrength} x {qcoherence}"
-        )
+    check_bank_limits(qangle, qstrength, qcoherence, len(qstr), len(qcoh))
 
 
 def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
@@ -204,7 +256,7 @@ def _launch_hash_filter(cheap, filters, raw, pixel_types, *, k1d, nf, qstr, qcoh
 def apply_filters(
     cheap: torch.Tensor,  # [H, W] f32
     buckets: torch.Tensor,  # [H, W] int32
-    filters: torch.Tensor,  # [216 * pixel_types, 128] f32
+    filters: torch.Tensor,  # [n_buckets * pixel_types, 128] f32
     *,
     patch_size: int = 11,
     pixel_types: int = 4,  # 4: ratio-2 bank, row bucket*4 + phase; 1: row bucket
@@ -212,8 +264,9 @@ def apply_filters(
     ratio: int = 2,
 ) -> torch.Tensor:
     """Raw filtered plane: bank[row] . patch per pixel, 0 where the bucket is
-    outside [0, n_buckets). The CUDA kernel for a CUDA tensor,
-    apply_filters_reference for a CPU tensor."""
+    outside [0, n_buckets). The CUDA kernel for a CUDA tensor (float32, as
+    the JAX function; a bank too large for its shared memory is refused,
+    `check_gather_smem`), apply_filters_reference for a CPU tensor."""
     kw = dict(patch_size=patch_size, pixel_types=pixel_types,
               patch_margin=patch_margin, ratio=ratio)
     if cheap.device.type == "cpu":
@@ -236,6 +289,7 @@ def apply_filters(
         )
     n_buckets = filters.shape[0] // pixel_types
     _check_bank(filters, cheap.device, n_buckets * pixel_types)
+    check_gather_smem(n_buckets, pixel_types)
 
     from raisr_tpu_torch.ops.cuda._build import load_library
 

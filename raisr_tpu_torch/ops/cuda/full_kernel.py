@@ -5,7 +5,7 @@ Port of raisr_tpu/ops/pallas/full_kernel.py:raisr_pass_pallas_full (ratio 2,
 4 pixel phases) and raisr_pass_pallas_full_single (single-phase banks, e.g.
 ratio 1.5). One kernel, csrc/full_kernel.cu, serves both (launch A, hash
 then gather with the phase's bank resident in shared memory, and launch B,
-the epilogue; see its header); the phase count is its only difference. The
+the epilogue, which `pass_epilogue` also runs alone; see its header); the phase count is its only difference. The
 TPU tiling and precision knobs (tb2, ostack, rowbatch, cchunk, gchunk,
 hashloop, mpack, ftrans, mxu_passes, p_split, i8, pcenter, interpret) have no
 meaning here and are gone. The caller names the tier (`tier`, from
@@ -27,7 +27,8 @@ tensor and the plain version on a CPU tensor. There is no fallback: on CUDA
 they launch the kernel or raise. `LAUNCHES[(tier, phases)]` counts the
 passes that went through the kernel, one per pass whatever its CUDA
 launches: float32 and bfloat16 (p_split included) with 4 or 1 phases,
-pcenter and int8 with 4 only, as on the TPU.
+pcenter and int8 with 4 only, as on the TPU. `EPILOGUE_LAUNCHES` counts
+launch B, inside a pass or alone.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 
 from raisr_tpu_torch.ops.cuda.filter_kernel import (
     FILTER_STRIDE,
+    N_TAPS,
     PCENTER,
     _check_bank,
     _check_hash_args,
@@ -57,8 +59,8 @@ LAUNCHES = {
 TIER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "pcenter": torch.bfloat16, "int8": torch.int16}
 _TIER_CODE = {"float32": 0, "bfloat16": 1, "pcenter": 2, "int8": 3}
+EPILOGUE_LAUNCHES = 0  # launch B (epilogue_kernel), in a pass or through pass_epilogue
 
-_N_TAPS = 121
 # the int8 tier's grid: raisr_tpu's balanced hi/lo int8 pairs span
 # [-32896, 32639] (full_kernel.py:76, :779)
 _INT_LO, _INT_HI = -32896.0, 32639.0
@@ -78,7 +80,7 @@ def round_bf16_error_diffused(filters: torch.Tensor) -> torch.Tensor:
     f = filters.to(torch.float32)
     out = torch.zeros((f.shape[0], FILTER_STRIDE), dtype=torch.bfloat16, device=f.device)
     carry = torch.zeros(f.shape[0], dtype=torch.float32, device=f.device)
-    for k in range(_N_TAPS):
+    for k in range(N_TAPS):
         q = (f[:, k] + carry).to(torch.bfloat16)
         carry = (carry + f[:, k]) - q.to(torch.float32)
         out[:, k] = q
@@ -110,7 +112,7 @@ def int8_scale(filters: torch.Tensor) -> torch.Tensor:
     exp2(floor(log2(32639 / max(absmax, 1e-6)))) over taps 0..120. Taken on
     the CPU, so every device gets the same scale (float32 log2 decides the
     floor just under a power of two)."""
-    f = filters[:, :_N_TAPS].detach().to("cpu", torch.float32)
+    f = filters[:, :N_TAPS].detach().to("cpu", torch.float32)
     absmax = torch.clamp(f.abs().max(), min=1e-6)
     return torch.exp2(torch.floor(torch.log2(torch.tensor(_INT_HI) / absmax)))
 
@@ -125,11 +127,11 @@ def int8_bank(filters: torch.Tensor) -> tuple[torch.Tensor, float]:
     shift); the CUDA kernel multiplies the whole int16 tap by the unshifted
     integer patch in int32, so it needs neither."""
     scale = int8_scale(filters)
-    q = round_int_error_diffused(filters[:, :_N_TAPS].detach().to("cpu"), scale)
+    q = round_int_error_diffused(filters[:, :N_TAPS].detach().to("cpu"), scale)
     if q.min() < -32768:  # the carry stays within a step of the clamp
         raise ValueError("int8 bank: a tap fell below the int16 range")
     out = torch.zeros((q.shape[0], FILTER_STRIDE), dtype=torch.int16)
-    out[:, :_N_TAPS] = q.to(torch.int16)
+    out[:, :N_TAPS] = q.to(torch.int16)
     return out.to(filters.device), float(1.0 / scale)
 
 
@@ -239,6 +241,63 @@ def _check(cheap, filters, k1d, qstr, qcoh, qangle, qstrength, qcoherence,
         )
 
 
+def pass_epilogue(
+    cheap: torch.Tensor,  # [H, W] f32
+    raw: torch.Tensor,  # [H, W] f32, the filter output
+    *,
+    min_val: int = 16,
+    max_val: int = 235,
+    blending: int = 2,
+    patch_size: int = 11,
+    exact_edges: bool = True,
+    frame_h: int = 0,
+    frame_pad: int = 0,
+    row0: int = 0,
+    zone_h: int = 0,
+) -> torch.Tensor:
+    """The pass epilogue alone (launch B): exclusive range reject,
+    processed-zone mask, census blend (1 Randomness, 2 CountOfBitsChanged),
+    floor(+0.5), clamp and the blend zone, with the zones of a frame stack
+    (frame_h/frame_pad) or a row stripe (row0/zone_h). The CUDA kernel for
+    CUDA tensors, ops/epilogue.py `_finish_pass`, its plain version, for CPU
+    tensors; the two agree bit for bit."""
+    loop_margin = patch_size // 2 + 1
+    col_end = processed_col_end(cheap.shape[-1], loop_margin, exact_edges)
+    if cheap.device.type == "cpu":
+        return _finish_pass(cheap, raw, min_val=min_val, max_val=max_val, blending=blending,
+                            loop_margin=loop_margin, col_end=col_end, frame_h=frame_h,
+                            frame_pad=frame_pad, row0=row0, zone_h=zone_h)
+    if cheap.device.type != "cuda":
+        raise ValueError(f"pass_epilogue runs on cpu or cuda, not {cheap.device}")
+    _check_plane(cheap)
+    if (raw.dtype != torch.float32 or raw.shape != cheap.shape or raw.device != cheap.device
+            or not raw.is_contiguous()):
+        raise ValueError(
+            f"raw must be a contiguous float32 {tuple(cheap.shape)} tensor on {cheap.device}, "
+            f"got {raw.dtype} {tuple(raw.shape)} on {raw.device}"
+        )
+    if patch_size != 11:
+        raise ValueError(f"the CUDA kernel takes patch_size 11, got {patch_size}")
+    if blending not in (1, 2):
+        raise ValueError(f"blending must be 1 or 2, got {blending}")
+
+    from raisr_tpu_torch.ops.cuda._build import load_library
+
+    h, w = cheap.shape
+    out = torch.empty_like(cheap)
+    dev, stream = _device_and_stream(cheap)
+    err = load_library().raisr_full_epilogue(
+        cheap.data_ptr(), raw.data_ptr(), out.data_ptr(), h, w,
+        float(min_val), float(max_val), int(blending), col_end,
+        frame_h, frame_pad, row0, zone_height(h, frame_h, zone_h), dev, stream,
+    )
+    if err:
+        raise RuntimeError(f"raisr_full_epilogue launch failed: cudaError {err}")
+    global EPILOGUE_LAUNCHES
+    EPILOGUE_LAUNCHES += 1
+    return out
+
+
 def raisr_pass_full(
     cheap: torch.Tensor,  # [H, W] f32 (integer-valued)
     filters: torch.Tensor,  # [216 * pixel_types, 128] f32, bf16 or int16
@@ -288,24 +347,14 @@ def raisr_pass_full(
     _check(cheap, filters, k1d, qstr, qcoh, qangle, qstrength, qcoherence,
            patch_size, blending, pixel_types, tier, pbias)
 
-    from raisr_tpu_torch.ops.cuda._build import load_library
-
-    h, w = cheap.shape
     raw = torch.empty_like(cheap)
-    out = torch.empty_like(cheap)
     _launch_hash_filter(cheap, filters, raw, pixel_types, k1d=k1d, nf=nf, qstr=qstr,
                         qcoh=qcoh, qangle=qangle, qstrength=qstrength,
                         qcoherence=qcoherence, tier=_TIER_CODE[tier], pbias=pbias,
                         inv_scale=inv_scale)
-    dev, stream = _device_and_stream(cheap)
-    err = load_library().raisr_full_epilogue(
-        cheap.data_ptr(), raw.data_ptr(), out.data_ptr(), h, w,
-        float(min_val), float(max_val), int(blending),
-        processed_col_end(w, patch_size // 2 + 1, exact_edges),
-        frame_h, frame_pad, row0, zone_height(h, frame_h, zone_h), dev, stream,
-    )
-    if err:
-        raise RuntimeError(f"raisr_full_epilogue launch failed: cudaError {err}")
+    out = pass_epilogue(cheap, raw, min_val=min_val, max_val=max_val, blending=blending,
+                        patch_size=patch_size, exact_edges=exact_edges, frame_h=frame_h,
+                        frame_pad=frame_pad, row0=row0, zone_h=zone_h)
     LAUNCHES[(tier, pixel_types)] += 1
     return out
 

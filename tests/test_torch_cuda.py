@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card: held against their plain PyTorch
 versions, inside the engine's batched step, and under CUDA-graph capture:
 the fused pass (every tier: float32, bf16 at 8 bits and p_split at 10/16,
-pcenter, int8; 4 and 1 phases), the filter apply (apply_filters, 4 and 1
-phases), launch A alone (apply_filters_hash) and the s8 matmul probe.
+pcenter, int8; 4 and 1 phases), launch B alone (pass_epilogue), the filter
+apply (apply_filters, 4 and 1 phases, banks of 1 to 256 buckets and the
+refusal above shared memory), launch A alone (apply_filters_hash), the
+engine's refusal of a bank over the CUDA pass's limits, and the s8 matmul
+probe.
 
 Every test here needs a CUDA card and skips without one. This file imports
 no jax, so it also runs where jax is absent; tests/conftest.py imports jax,
@@ -450,6 +453,144 @@ def test_launch_a_stacks_and_stripes(tier, pixel_types, bits):
     got = fk.raisr_pass_full(stripe, f, row0=17, zone_h=120, **base)
     assert torch.equal(got, fk.raisr_pass_full_reference(stripe, f, row0=17, zone_h=120,
                                                          **base))
+
+
+# -- launch B alone (pass_epilogue) ---------------------------------------------
+
+
+def _epilogue_inputs(h, w, bits, seed, dev, misalign=False):
+    """An integer-valued cheap plane over the depth's full range and a raw
+    plane around it, some of it outside [min_val, max_val] and some exactly on
+    the bounds (the reject is exclusive); `misalign` puts both 4 bytes off a
+    16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    top = (1 << bits) - 1
+    cfg = RaisrConfig(bits=bits)
+    cheap = np.round(rng.uniform(0, top, (h, w))).astype(np.float32)
+    raw = (cheap + rng.normal(0, top / 40, (h, w))).astype(np.float32)
+    edge = rng.random((h, w))
+    raw[edge < 0.02] = cfg.min_val
+    raw[edge > 0.98] = cfg.max_val
+
+    def put(a):
+        if not misalign:
+            return torch.tensor(a, device=dev)
+        t = torch.empty(a.size + 1, dtype=torch.float32, device=dev)[1:].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        assert t.data_ptr() % 16 == 4 and t.is_contiguous()
+        return t
+
+    return put(cheap), put(raw), dict(min_val=cfg.min_val, max_val=cfg.max_val)
+
+
+def _hold_epilogue(cheap, raw, **kw):
+    before = fk.EPILOGUE_LAUNCHES
+    got = fk.pass_epilogue(cheap, raw, **kw)
+    torch.cuda.synchronize()
+    assert fk.EPILOGUE_LAUNCHES == before + 1
+    w = cheap.shape[1]
+    want = _finish_pass(cheap, raw, min_val=kw["min_val"], max_val=kw["max_val"],
+                        blending=kw["blending"], loop_margin=6,
+                        col_end=processed_col_end(w, 6, True),
+                        **{k: kw[k] for k in ("frame_h", "frame_pad", "row0", "zone_h")
+                           if k in kw})
+    diff = (got - want).abs()
+    assert torch.equal(got, want), (int((diff > 0).sum()), float(diff.max()))
+
+
+@pytest.mark.parametrize("blending", [1, 2])
+@pytest.mark.parametrize("bits", [8, 10, 16])
+@pytest.mark.parametrize("h,w", [(270, 480), (37, 63), (5, 64), (40, 1), (1, 300), (66, 132),
+                                 (19, 4700), (128, 128), (129, 129)])
+def test_epilogue_matches_plain_version(h, w, bits, blending):
+    """Launch B against _finish_pass, bit for bit: widths that are and are
+    not multiples of 4 (16-byte and 4-byte accesses), a height below a
+    warp's 16 rows, a 1-column and a 1-row plane, and a plane that fills one
+    block's 128 x 128 and one a row and a column over it."""
+    dev = require_cuda()
+    cheap, raw, kw = _epilogue_inputs(h, w, bits, h + w + bits, dev)
+    _hold_epilogue(cheap, raw, blending=blending, **kw)
+
+
+@pytest.mark.parametrize("blending", [1, 2])
+@pytest.mark.parametrize("w", [76, 75])
+def test_epilogue_stacks_stripes_and_alignment(blending, w):
+    """Frame stacks with even and odd guard bands (a period that is no
+    multiple of a warp's rows), row stripes with a positive and a negative
+    row0, and planes 4 bytes off a 16-byte boundary, against _finish_pass."""
+    dev = require_cuda()
+    h = 41
+    for pad in (12, 7, 9):
+        cheap, raw, kw = _epilogue_inputs(3 * (h + 2 * pad), w, 8, pad + w, dev)
+        _hold_epilogue(cheap, raw, blending=blending, frame_h=h, frame_pad=pad, **kw)
+    for row0, zone_h in ((17, 120), (-3, 60), (-9, 40), (90, 100)):
+        cheap, raw, kw = _epilogue_inputs(53, w, 10, 100 + row0 + w, dev)
+        _hold_epilogue(cheap, raw, blending=blending, row0=row0, zone_h=zone_h, **kw)
+    cheap, raw, kw = _epilogue_inputs(70, w, 8, 7 + w, dev, misalign=True)
+    _hold_epilogue(cheap, raw, blending=blending, **kw)
+
+
+# -- apply_filters on the resident bank: bank sizes and the refusal ---------------
+
+
+@pytest.mark.parametrize("pixel_types", [4, 1])
+@pytest.mark.parametrize("n_buckets", [1, 216, 256])
+def test_apply_filters_bank_sizes(n_buckets, pixel_types):
+    """Banks of 1, 216 and 256 buckets, with buckets in and out of range
+    (raw 0 there), against the plain version, bit for bit."""
+    dev = require_cuda()
+    rng = np.random.default_rng(n_buckets + pixel_types)
+    h, w = 75, 203
+    img = torch.tensor(smooth(h, w, seed=n_buckets), device=dev)
+    f = torch.tensor(make_filters(rng, pixel_types, n_buckets), device=dev)
+    b = torch.tensor(rng.integers(-3, n_buckets + 3, (h, w)).astype(np.int32), device=dev)
+    b[0, 0], b[0, 1] = -2**31, 2**31 - 1
+    kw = dict(pixel_types=pixel_types, ratio=2 if pixel_types == 4 else 1)
+    got = flk.apply_filters(img, b, f, **kw)
+    torch.cuda.synchronize()
+    bad = (b < 0) | (b >= n_buckets)
+    assert bad.any() and (got[bad] == 0).all() and (got[~bad] != 0).any()
+    assert torch.equal(got, flk.apply_filters_reference(img, b, f, **kw))
+
+
+@pytest.mark.parametrize("pixel_types,n_buckets", [(4, 273), (1, 399)])
+def test_apply_filters_refuses_a_bank_over_shared_memory(pixel_types, n_buckets):
+    """One bucket over what fits beside the tile buffers: a ValueError that
+    names the byte counts, and no launch; one fewer runs."""
+    dev = require_cuda()
+    rng = np.random.default_rng(n_buckets)
+    img = torch.tensor(smooth(20, 40, seed=1), device=dev)
+    b = torch.zeros((20, 40), dtype=torch.int32, device=dev)
+    kw = dict(pixel_types=pixel_types, ratio=2 if pixel_types == 4 else 1)
+    f = torch.tensor(make_filters(rng, pixel_types, n_buckets), device=dev)
+    before = (flk.LAUNCHES, flk.SINGLE_LAUNCHES)
+    with pytest.raises(ValueError, match=f"{flk.gather_smem_bytes(n_buckets, pixel_types)} bytes"):
+        flk.apply_filters(img, b, f, **kw)
+    assert (flk.LAUNCHES, flk.SINGLE_LAUNCHES) == before
+    fits = f[:-pixel_types].contiguous()
+    b[:] = n_buckets - 2
+    got = flk.apply_filters(img, b, fits, **kw)
+    assert torch.equal(got, flk.apply_filters_reference(img, b, fits, **kw))
+
+
+def test_engine_refuses_a_bank_over_the_cuda_limits():
+    """300 buckets, or 9 strength edges: refused when the engine is built on
+    the card with the fused backend, served by the taps backend."""
+    from raisr_tpu_torch.config import RaisrError
+
+    dev = require_cuda()
+    rng = np.random.default_rng(20)
+    for qa, qs, qc in ((25, 4, 3), (2, 10, 3)):
+        bank = FilterBank(filters=make_filters(rng, 4, qa * qs * qc),
+                          qstr=np.linspace(0.001, 0.02, qs - 1).astype(np.float32),
+                          qcoh=np.linspace(0.2, 0.4, qc - 1).astype(np.float32),
+                          pixel_types=4, taps=121, source_dtype="fp32")
+        model = RaisrModel(qa, qs, qc, 11, (bank,))
+        with pytest.raises(RaisrError, match="at most (256 buckets|8 strength)"):
+            RaisrEngine(RaisrConfig(passes=1), model, device=dev)
+        eng = RaisrEngine(RaisrConfig(passes=1, backend="reference"), model, device=dev)
+        y = torch.tensor(smooth(24, 32, seed=3), device=dev)
+        assert tuple(eng.upscale_y(y).shape) == (48, 64)
 
 
 # -- the s8 matmul probe --------------------------------------------------------

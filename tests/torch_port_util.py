@@ -17,11 +17,12 @@ QSTR = (0.001269, 0.022169)
 QCOH = (0.192916, 0.405942)
 
 
-def make_filters(rng: np.random.Generator, pixel_types: int = 4) -> np.ndarray:
+def make_filters(rng: np.random.Generator, pixel_types: int = 4,
+                 n_buckets: int = 216) -> np.ndarray:
     """One pass's bank of the real shape (216 buckets x pixel_types phases x
-    121 taps, rows padded to 128; 4 phases for 2x, 1 for 1.5x): centre tap 1
-    plus noise of 0.01."""
-    rows = 216 * pixel_types
+    121 taps, rows padded to 128; 4 phases for 2x, 1 for 1.5x), or of another
+    bucket count: centre tap 1 plus noise of 0.01."""
+    rows = n_buckets * pixel_types
     filters = np.zeros((rows, 128), np.float32)
     filters[:, :121] = rng.normal(size=(rows, 121)).astype(np.float32) * 0.01
     filters[:, 60] += 1.0
