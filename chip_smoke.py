@@ -73,6 +73,24 @@ the difference to the float32 frames and the times printed):
  15. the s8 x s8 -> s32 matmul probe (tools/probe_s16.py) at [864, 144] x
      [144, 512], against the int64 product and torch._int_mm, each timed as
      a CUDA graph of 100 calls.
+then the file-to-file serving path (a 2-pass 216x4x121 bank written to a
+folder and loaded from it; 24 distinct 8-bit YUV420 1080p frames from a seed):
+ 16. StreamProcessor(depth 2, batch 4) over the frames in host memory: every
+     frame equal to engine.process of it, bit for bit, also at batch 1 and on
+     22 frames (a tail of 2); 2 fused launches a group; the first group
+     against the plain passes; frames/s at depth 1, 2 and 4 beside phase 4's
+     resident step, the Tracer's report, and a group's copies and staging
+     timed apart;
+ 17. the CLI in process: `raisr-torch upscale` of the frames as a Y4M file,
+     the output read back (3840x2160, 24 frames, each equal to phase 16's),
+     then `compare`, `info`, `bench --frames 20` and `bench --latency`;
+ 18. cheap_upscale in cubic and lanczos at 2x and 1.5x, the card against the
+     CPU (max abs error 0); one frame through the fused engine with
+     resize_mode="cubic" against the plain passes; backend="xla" (the dense
+     convolution) against backend="reference" within the fuzz bar;
+ 19. two-pass mode 2 (run_tier): 4 frames 1080p, 2x, 2 passes, float32; pass
+     1 over the 4416x1920 LR stack (guard 12), pass 2 over the 4K stack
+     (guard 24), each launch and every frame against its plain version.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. A time is one pair of CUDA events around back-to-back calls,
 over their count, so the device's pace and not the host's enqueue sets it. The `kernels` line gives every kernel form its bound (bound_ms,
@@ -909,8 +927,10 @@ def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None
     chroma upscale, a replayed CUDA graph against eager; the difference to
     `base` (the float32 frames of the same depth and ratio), printed; times
     of the tier's kernel beside the float32 kernel on the same plane, its
-    plain version and the step. Returns the `kernels` row, the served Y
-    frames and the step time."""
+    plain version and the step. With cfg.mode == 2 (two passes) pass 1 runs
+    at LR size over the stack with a 12-row guard, the upscale comes before
+    pass 2 and the guard becomes 24 HR rows. Returns the `kernels` row, the
+    served Y frames and the step time."""
     import torch
 
     from raisr_tpu_torch import RaisrEngine
@@ -947,19 +967,24 @@ def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None
         errs.append(hold(label, f"blending {blending}, one {out_h}x{out_w} plane",
                          fk.raisr_pass_full(plane, bank0, **kw),
                          fk.raisr_pass_full_reference(plane, bank0, **kw)))
-    # the path's launches: the stack of all frames, LR guard 6 rows
-    lr_pad = 6
+    # the path's launches: the stack of all frames, LR guard 6 rows (12 when
+    # pass 1 runs at LR size), upscaled before the pass of cfg.two_pass_mode
+    up_pass = cfg.two_pass_mode - 1
+    lr_pad = 12 if up_pass == 1 else 6
     hr_pad = lr_pad * out_h // LR_H
-    stack_lr = pipeline.guard_band_stack(lr, lr_pad)
-    if out_h == 2 * LR_H:
-        x = cheap_upscale(stack_lr, 2 * stack_lr.shape[0], out_w, bits)
-    else:
-        x = cheap_upscale_stacked(stack_lr, N_FRAMES, LR_H, lr_pad, out_h, hr_pad, out_w, bits)
+    x = pipeline.guard_band_stack(lr, lr_pad)
+    fh, fp = LR_H, lr_pad
     for p, (bank, extra) in enumerate(banks):
-        skw = dict(blending=2, frame_h=out_h, frame_pad=hr_pad)
+        if p == up_pass:
+            if out_h == 2 * LR_H:
+                x = cheap_upscale(x, 2 * x.shape[0], out_w, bits)
+            else:
+                x = cheap_upscale_stacked(x, N_FRAMES, LR_H, lr_pad, out_h, hr_pad, out_w, bits)
+            fh, fp = out_h, hr_pad
+        skw = dict(blending=2, frame_h=fh, frame_pad=fp)
         got = fk.raisr_pass_full(x, bank, **pk(p, **skw, **extra))
         errs.append(hold(label, f"pass {p + 1} over the {N_FRAMES}-frame stack "
-                         f"{tuple(x.shape)} (frame_h {out_h}, frame_pad {hr_pad})",
+                         f"{tuple(x.shape)} (frame_h {fh}, frame_pad {fp})",
                          got, fk.raisr_pass_full_reference(x, bank, **pk(p, **skw, **extra))))
         x = got
     stack_y = x.reshape(N_FRAMES, out_h + 2 * hr_pad, out_w)[:, hr_pad: hr_pad + out_h]
@@ -983,8 +1008,10 @@ def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None
         raise SystemExit(f"phase {phase} failed: {tag} Y differs from the stacked launches")
     peak = float((1 << bits) - 1)
     for i in range(N_FRAMES):
-        x = cheap_upscale(lr[i], out_h, out_w, bits)
+        x = lr[i]
         for p, (bank, extra) in enumerate(banks):
+            if p == up_pass:
+                x = cheap_upscale(x, out_h, out_w, bits)
             x = fk.raisr_pass_full_reference(x, bank, **pk(p, blending=2, **extra))
         frac, _, mx = diff_stats(oyf[i], x)
         line = f"phase {phase} {tag} Y frame {i}: vs plain passes differing {frac:.6%}, max {mx}"
@@ -1024,7 +1051,8 @@ def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None
     form = {"float32": "f32", "pcenter": "pcenter", "int8": "int8"}.get(
         tier, "bf16" if bits == 8 else "p_split")
     row = kernel_row(
-        f"full_kernel{'_single' if pt == 1 else ''}_{form}_{bits}bit",
+        f"full_kernel{'_single' if pt == 1 else ''}_{form}_{bits}bit"
+        + ("_mode2" if up_pass == 1 else ""),
         "raisr_tpu_torch/csrc/full_kernel.cu",
         "raisr_tpu/ops/pallas/full_kernel.py:" + ("82" if pt == 4 else "952"),
         launches, errs, ms, ms_plain,
@@ -1107,6 +1135,310 @@ def run_probe(dev, card: str) -> dict:
                       launches, errs, ms, plain,
                       bound(nbytes(a, b), nbytes(c), 2 * ps.M * ps.K * ps.N, "int8"),
                       library_ms=lib)
+
+
+def host_ms(fn, iters: int) -> float:
+    """Host milliseconds per call of a function that only touches host memory."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def write_y4m(path: str, frames) -> None:
+    """An 8-bit YUV420 Y4M clip of `frames`, written byte by byte (through
+    no writer of the package): what phase 17 hands the CLI."""
+    h, w = frames[0].y.shape
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F25:1 Ip A1:1 C420jpeg\n".encode())
+        for fr in frames:
+            f.write(b"FRAME\n")
+            for p in (fr.y, fr.u, fr.v):
+                f.write(p.tobytes())
+
+
+def frames_equal(got, want) -> bool:
+    import numpy as np
+
+    return (len(got) == len(want) and all(
+        np.array_equal(a.y, b.y) and np.array_equal(a.u, b.u) and np.array_equal(a.v, b.v)
+        and a.y.dtype == b.y.dtype for a, b in zip(got, want)))
+
+
+def one_stream(sp):
+    """Takes a StreamProcessor's side streams away, so that its copies run
+    on the step's stream: the form the shipped one is measured against."""
+    sp._in = sp._out = None
+    return sp
+
+
+def run_stream(dev, card: str, tmp: str, kw: dict, resident_ms: float):
+    """Phase 16: the file-to-file path's middle, StreamProcessor over 24
+    distinct 8-bit YUV420 1080p frames in host memory, on a 2-pass bank
+    loaded from a folder under `tmp`. Every streamed frame must equal
+    engine.process of that frame, bit for bit, at batch 4 (depth 2), at
+    batch 1, and on 22 frames (a tail of 2); the fused launches are counted
+    (2 a group); the same with the copies on the step's stream; the first
+    group's frames are held against the plain passes. Then frames/s at depth
+    1, 2 and 4 with batch 4 and at batch 1 (outputs dropped), with the copies
+    on side streams and on the step's stream, beside the resident step's rate of phase 4 (`resident_ms` for 4 frames) and the
+    times of the copies and the staging alone. Returns the `kernels` row of
+    the stream path, and the folder, frames and served frames for phase 17."""
+    import numpy as np
+    import torch
+
+    from raisr_tpu_torch import RaisrConfig, RaisrEngine
+    from raisr_tpu_torch.engine import Frame
+    from raisr_tpu_torch.ops import pipeline
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.resize import cheap_upscale
+    from raisr_tpu_torch.stream import StreamProcessor
+    from raisr_tpu_torch.utils.profiler import Tracer
+
+    n_clip, batch = 24, 4
+    folder = os.path.join(tmp, "bank")
+    model = make_bank(folder, seed=16)
+    cfg = RaisrConfig(filterfolder=folder, passes=PASSES)
+    engine = RaisrEngine(cfg, device=dev)  # loads the folder, as the CLI does
+    out_h, out_w = cfg.output_size(LR_H, LR_W)
+    planes = [make_planes(n_clip, h, w, seed, dev).cpu().numpy()
+              for h, w, seed in ((LR_H, LR_W, 161), (LR_H // 2, LR_W // 2, 162),
+                                 (LR_H // 2, LR_W // 2, 163))]
+    frames = [Frame(y=planes[0][i], u=planes[1][i], v=planes[2][i]) for i in range(n_clip)]
+    if len({fr.y.tobytes() for fr in frames}) != n_clip:
+        raise SystemExit("phase 16 failed: the clip's frames are not distinct")
+    want = [engine.process(fr) for fr in frames]
+
+    def fused_counts():
+        return fk.LAUNCHES[("float32", 4)], sum(fk.LAUNCHES.values()), fk.EPILOGUE_LAUNCHES
+
+    launches = 0
+    for label, depth, b, n in (("batch 4, depth 2", 2, batch, n_clip),
+                               ("batch 1, depth 2", 2, 1, n_clip),
+                               ("batch 4, depth 2, 22 frames (a tail of 2)", 2, batch, 22),
+                               ("batch 4, depth 4, copies on the step's stream", 4, batch,
+                                n_clip)):
+        torch.cuda.synchronize()
+        zero(fk.LAUNCHES)
+        fk.EPILOGUE_LAUNCHES = 0
+        sp = StreamProcessor(engine, depth=depth, batch=b)
+        if "step's" in label:
+            one_stream(sp)
+        got = list(sp.process(iter(frames[:n])))
+        counts = fused_counts()
+        groups = -(-n // b)
+        same = frames_equal(got, want[:n])
+        print(f"phase 16 stream, {label}: {len(got)} frames {got[0].y.shape} {got[0].y.dtype}, "
+              f"equal to engine.process bit for bit: {same}; fused passes launched "
+              f"{counts[0]} (launch B {counts[2]}) in {groups} groups")
+        if not same or counts != (PASSES * groups,) * 3:
+            raise SystemExit(f"phase 16 failed: {label}")
+        if launches == 0:
+            launches, served = counts[0], got
+    # the first group against the plain passes, frame by frame
+    filters = [torch.tensor(b.filters, device=dev) for b in model.banks]
+    edges = [dict(qstr=tuple(float(q) for q in b.qstr),
+                  qcoh=tuple(float(q) for q in b.qcoh)) for b in model.banks]
+    errs = []
+    for i in range(batch):
+        x = torch.as_tensor(frames[i].y, device=dev).to(torch.float32)
+        for p in range(PASSES):
+            cur = cheap_upscale(x, out_h, out_w, 8) if p == 0 else x
+            x = fk.raisr_pass_full_reference(cur, filters[p], blending=2, **dict(kw, **edges[p]))
+        errs.append(hold("16 stream", f"Y frame {i} vs the plain passes",
+                         torch.as_tensor(served[i].y, device=dev).to(torch.float32), x))
+
+    # rates: frames from memory, outputs dropped after materialising; each
+    # depth twice, interleaved
+    clip = frames * 4
+    rates = {}
+    for side in (True, False):
+        for depth, b in ((1, batch), (2, batch), (4, batch), (2, 1)) * 2:
+            sp = StreamProcessor(engine, depth=depth, batch=b)
+            if not side:
+                one_stream(sp)
+            # until the allocators hold every block that circulates
+            sum(1 for _ in sp.process(iter(frames[:(depth + 2) * b])))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_out = sum(1 for _ in sp.process(iter(clip)))
+            rates.setdefault((side, depth, b), []).append(n_out / (time.perf_counter() - t0))
+    resident = batch * 1000 / resident_ms
+    for side, label in ((True, "copies on side streams (as shipped)"),
+                        (False, "copies on the step's stream")):
+        r = [f"depth {d} {rates[side, d, batch][0]:.2f} / {rates[side, d, batch][1]:.2f}"
+             for d in (1, 2, 4)]
+        print(f"phase 16 rates on {card}: StreamProcessor batch {batch}, {len(clip)} frames "
+              f"1080p -> 4K, 2 passes, {label}, frames/s at {', '.join(r)}; at batch 1, depth 2 "
+              f"{rates[side, 2, 1][0]:.2f} / {rates[side, 2, 1][1]:.2f}; "
+              f"process_batch_device alone on resident frames (phase 4) {resident:.2f} frames/s")
+    tracer = Tracer()
+    sp = StreamProcessor(engine, depth=2, batch=batch, tracer=tracer)
+    tracer.reset()
+    sum(1 for _ in sp.process(iter(clip)))
+    print(f"phase 16 Tracer report of one run at depth 2 (host ms): "
+          f"{json.dumps(tracer.report())}")
+    # what a group costs apart: the copies on the device's clock, the
+    # staging on the host's
+    pin = [torch.empty((batch,) + p.shape[1:], dtype=torch.uint8, pin_memory=True) for p in planes]
+    res = [t.to(dev) for t in pin]
+    outs = engine.process_batch_device(*res)
+    pin_out = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]
+    ms_h2d = cuda_ms(lambda: [t.to(dev, non_blocking=True) for t in pin], 10, 2)
+    ms_d2h = cuda_ms(lambda: [h.copy_(o, non_blocking=True) for h, o in zip(pin_out, outs)], 10, 2)
+    in_bytes, out_bytes = nbytes(*pin), nbytes(*pin_out)
+
+    def stage():
+        for t, p in zip(pin, planes):
+            view = t.numpy()
+            for i in range(batch):
+                np.copyto(view[i], p[i])
+
+    ms_stage = host_ms(stage, 10)
+    ms_enqueue = host_ms(lambda: engine.process_batch_device(*res), 10)
+    torch.cuda.synchronize()
+    print(f"phase 16 a group of {batch} frames apart, on {card}: copy in {in_bytes / 1e6:.2f} MB "
+          f"{ms_h2d:.3f} ms = {in_bytes / ms_h2d / 1e6:.2f} GB/s, copy out {out_bytes / 1e6:.2f} MB "
+          f"{ms_d2h:.3f} ms = {out_bytes / ms_d2h / 1e6:.2f} GB/s (pinned, CUDA events); the "
+          f"resident step {resident_ms:.3f} ms; on the host's clock: staging into pinned "
+          f"memory {ms_stage:.3f} ms, enqueueing the step {ms_enqueue:.3f} ms")
+    # the row's times: pass 1 over the stream's own stack
+    stack = cheap_upscale(pipeline.guard_band_stack(res[0].to(torch.float32), 6),
+                          2 * (LR_H + 12) * batch, out_w, 8)
+    skw = dict(kw, **edges[0], blending=2, frame_h=out_h, frame_pad=12)
+    ms = cuda_ms(lambda: fk.raisr_pass_full(stack, filters[0], **skw), 10, 2)
+    ms_plain = cuda_ms(lambda: fk.raisr_pass_full_reference(stack, filters[0], **skw), 2)
+    row = kernel_row("full_kernel_stream", "raisr_tpu_torch/csrc/full_kernel.cu",
+                     "raisr_tpu/ops/pallas/full_kernel.py:82", launches, errs, ms, ms_plain,
+                     pass_bound(stack, filters[0]))
+    return row, dict(folder=folder, frames=frames, want=want, rates=rates)
+
+
+def cli_lines(argv) -> list[str]:
+    """Run the port's CLI in process; returns what it printed on stdout."""
+    import contextlib
+    import io
+
+    from raisr_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    if rc != 0:
+        raise SystemExit(f"phase 17 failed: raisr-torch {' '.join(argv)} returned {rc}")
+    return buf.getvalue().strip().splitlines()
+
+
+def run_cli(card: str, tmp: str, c16: dict) -> None:
+    """Phase 17: `raisr-torch upscale` file to file on the card (no --device:
+    cuda is the default), on phase 16's frames as a Y4M clip and phase 16's
+    folder; the output read back with Y4MReader must be 3840x2160, 24 frames,
+    each equal to phase 16's; then compare, info and both bench forms."""
+    from raisr_tpu_torch import video
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+
+    src, dst = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "out.y4m")
+    write_y4m(src, c16["frames"])
+    folder = c16["folder"]
+    zero(fk.LAUNCHES)
+    fk.EPILOGUE_LAUNCHES = 0
+    lines = cli_lines(["upscale", "-i", src, "-o", dst, "--passes", str(PASSES), "--batch", "4",
+                       "--filterfolder", folder])
+    launches = (fk.LAUNCHES[("float32", 4)], fk.EPILOGUE_LAUNCHES)
+    rd = video.Y4MReader(dst)
+    got = list(rd)
+    rd.close()
+    same = frames_equal(got, c16["want"])
+    print(f"phase 17 raisr-torch upscale on {card}: {lines[-1]} (the CLI's own clock: it "
+          f"includes reading {os.path.getsize(src) / 1e6:.1f} MB and writing "
+          f"{os.path.getsize(dst) / 1e6:.1f} MB of Y4M); output {rd.fmt.width}x{rd.fmt.height}, "
+          f"{len(got)} frames, equal to phase 16's bit for bit: {same}; fused passes "
+          f"launched {launches[0]} (launch B {launches[1]})")
+    if (not same or (rd.fmt.width, rd.fmt.height, len(got)) != (2 * LR_W, 2 * LR_H, 24)
+            or launches != (PASSES * 6,) * 2):
+        raise SystemExit("phase 17 failed: the upscaled clip or the launch count")
+    cmp = json.loads(cli_lines(["compare", dst, dst, "--frames", "4"])[-1])
+    print(f"phase 17 raisr-torch compare of the output with itself: {json.dumps(cmp)}")
+    if cmp["psnr_y_db"] != float("inf") or cmp["frames"] != 4:
+        raise SystemExit("phase 17 failed: compare")
+    info = json.loads("\n".join(cli_lines(["info", "--filterfolder", folder, "--passes",
+                                           str(PASSES)])))
+    print(f"phase 17 raisr-torch info: qangle {info['qangle']}, passes {info['passes']}, "
+          f"bank {info['banks'][0]['hashkey_size']}x{info['banks'][0]['pixel_types']}x"
+          f"{info['banks'][0]['taps']}")
+    if (info["passes"], info["banks"][0]["hashkey_size"], info["banks"][0]["taps"]) != (
+            PASSES, 216, 121):
+        raise SystemExit("phase 17 failed: info")
+    common = ["--passes", str(PASSES), "--filterfolder", folder]
+    for argv in (["bench", "--frames", "20"], ["bench", "--latency", "--frames", "20"]):
+        line = cli_lines(argv + common)[-1]
+        json.loads(line)
+        print(f"phase 17 raisr-torch {' '.join(argv)} on {card}: {line}")
+
+
+def run_modes(y, u, v, dev, card: str, model, kw: dict) -> None:
+    """Phase 18: the cubic and lanczos resize on the card against the same
+    function on the CPU (a 1080p plane at 2x and 1.5x; the sum of each axis
+    is the same chain of float32 products and sums on both, so 0); one 1080p
+    frame through the fused engine with resize_mode="cubic" against the
+    plain passes, bit for bit; one 1080p frame, 1 pass, backend="xla" (the
+    dense convolution, with TF32 switched on globally around it: the call
+    itself must turn it off) against backend="reference" within the fuzz
+    bar."""
+    import torch
+
+    from raisr_tpu_torch import RaisrConfig, RaisrEngine
+    from raisr_tpu_torch.ops import pipeline
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.resize import cheap_upscale
+
+    plane = y[0].to(torch.float32)
+    for mode in ("cubic", "lanczos"):
+        for ratio in (2.0, 1.5):
+            oh, ow = int(LR_H * ratio), int(LR_W * ratio)
+            got = cheap_upscale(plane, oh, ow, 8, mode=mode)
+            want = cheap_upscale(plane.cpu(), oh, ow, 8, mode=mode)
+            frac, _, mx = diff_stats(got.cpu(), want)
+            print(f"phase 18 cheap_upscale {mode} {LR_H}x{LR_W} -> {oh}x{ow}, card vs CPU: "
+                  f"differing {frac:.6%}, max abs error {mx}")
+            if mx != 0.0:
+                raise SystemExit(f"phase 18 failed: {mode} at {ratio}x")
+    cfg = RaisrConfig(passes=PASSES, resize_mode="cubic")
+    out_h, out_w = cfg.output_size(LR_H, LR_W)
+    engine = RaisrEngine(cfg, model, device=dev)
+    zero(fk.LAUNCHES)
+    oy, ou, ov = engine.process_batch_device(y[:1], u[:1], v[:1])
+    torch.cuda.synchronize()
+    x = plane
+    for p, b in enumerate(model.banks):
+        cur = cheap_upscale(x, out_h, out_w, 8, mode="cubic") if p == 0 else x
+        x = fk.raisr_pass_full_reference(
+            cur, torch.tensor(b.filters, device=dev), blending=2,
+            **dict(kw, qstr=tuple(float(q) for q in b.qstr), qcoh=tuple(float(q) for q in b.qcoh)))
+    hold("18 cubic engine", f"Y of one frame vs the plain passes (launches "
+         f"{fk.LAUNCHES[('float32', 4)]})", oy[0].to(torch.float32), x)
+    uv_ok = all(torch.equal(g[0], pipeline.process_plane_uv(s[0], LR_H, LR_W, 8, "cubic")
+                            .to(torch.uint8)) for g, s in ((ou, u), (ov, v)))
+    if fk.LAUNCHES[("float32", 4)] != PASSES or not uv_ok:
+        raise SystemExit("phase 18 failed: the cubic engine's launch count or U/V")
+
+    engines = {b: RaisrEngine(RaisrConfig(passes=1, backend=b), model, device=dev)
+               for b in ("xla", "reference")}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        conv = engines["xla"].process_batch_device(y[:1])[0]
+        ms_conv = cuda_ms(lambda: engines["xla"].process_batch_device(y[:1]), 2, 0)
+        still_on = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    taps = engines["reference"].process_batch_device(y[:1])[0]
+    ms_taps = cuda_ms(lambda: engines["reference"].process_batch_device(y[:1]), 2, 0)
+    frac, med, mx = diff_stats(conv, taps)
+    print(f"phase 18 backend xla vs reference on {card}, one 1080p frame, 1 pass: differing "
+          f"{frac:.6%}, median {med}, max {mx}; xla {ms_conv:.3f} ms, reference {ms_taps:.3f} "
+          f"ms a frame; the caller's TF32 flag restored: {still_on}")
+    if not (frac < FUZZ_MAX_FRAC and med == 0.0 and still_on):
+        raise SystemExit("phase 18 failed: backend xla against reference")
 
 
 def graph_step(engine, y, u, v):
@@ -1293,6 +1625,14 @@ def main() -> int:
     rows.append(row)
     rows += run_hibit(dev, card)
     rows.append(run_probe(dev, card))
+    with tempfile.TemporaryDirectory() as tmp:
+        row, c16 = run_stream(dev, card, tmp, kw, ms_step)
+        rows.append(row)
+        run_cli(card, tmp, c16)
+    run_modes(y, u, v, dev, card, model, kw)
+    row, _, _ = run_tier(19, "8-bit 2x 2-pass mode 2", RaisrConfig(passes=PASSES, mode=2),
+                         model, (y, u, v), dev, card)
+    rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

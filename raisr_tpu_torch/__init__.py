@@ -9,6 +9,10 @@ Public API (mirrors the reference's 5-function C API, Library/Raisr.h:14-33):
     RaisrConfig        — all knobs of the vf_raisr FFmpeg filter
     load_model         — filterbin/Qfactor/config parser (== RNLInit model load)
     RaisrEngine        — init once, process frames (== RNLInit/SetRes/Process)
+
+File-to-file serving lives beside it, as in raisr_tpu: `stream.StreamProcessor`
+(pipelined dispatch), `video` (Y4M / raw YUV / PNG), `io_native`, and the
+`raisr-torch` command line (`cli.main`, `python -m raisr_tpu_torch.cli`).
 """
 
 from raisr_tpu_torch.config import (

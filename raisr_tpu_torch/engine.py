@@ -46,16 +46,14 @@ def pack_planes(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _resolve_backend(cfg: RaisrConfig, device: torch.device) -> str:
-    """reference -> taps; pallas -> the fused pass (the CUDA kernel on a CUDA
-    device, its plain version on the CPU); auto -> the fused kernel on CUDA
-    and taps on the CPU. The dense-conv `xla` backend is not ported yet."""
+    """reference -> taps; xla -> conv (the dense-conv formulation, float32);
+    pallas -> the fused pass (the CUDA kernel on a CUDA device, its plain
+    version on the CPU); auto -> the fused kernel on CUDA and taps on the
+    CPU."""
     if cfg.backend == Backend.REFERENCE:
         return "taps"
     if cfg.backend == Backend.XLA:
-        raise RaisrError(
-            "backend xla (the dense-conv formulation) is not ported to "
-            "raisr_tpu_torch yet (ROADMAP A12)."
-        )
+        return "conv"
     if cfg.backend == Backend.PALLAS:
         return "pallas"
     return "pallas" if device.type == "cuda" else "taps"

@@ -10,7 +10,8 @@ kernel on a CUDA tensor, its plain version on a CPU tensor) for ratio-2
 (4-phase) and single-phase (1.5x) banks, at every tier of raisr_tpu's
 pass_statics (float32, bfloat16 with p_split at >8 bits, pcenter, int8; see
 `_fused_tier`); "taps" is the unfused reference formulation in plain PyTorch on
-any device. A 4-phase bank at a ratio in (2, 3), e.g. 2.5x, uses phase 0 for
+any device; "conv" (the `xla` backend) is the taps pass with the filter apply
+as a dense convolution over all buckets (ops/filter_apply.py), float32 only. A 4-phase bank at a ratio in (2, 3), e.g. 2.5x, uses phase 0 for
 every pixel, as the reference and the taps path do, so the fused backend runs
 it as a single-phase pass over the bank's phase-0 rows (see `pass_banks`).
 Where raisr_tpu uses `vmap`, this module loops over the frames.
@@ -37,7 +38,7 @@ from raisr_tpu_torch.ops.cuda.full_kernel import (
     round_bf16_error_diffused,
 )
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
-from raisr_tpu_torch.ops.filter_apply import apply_filters_taps
+from raisr_tpu_torch.ops.filter_apply import apply_filters_conv, apply_filters_taps
 from raisr_tpu_torch.ops.resize import cheap_upscale, cheap_upscale_stacked
 
 
@@ -57,7 +58,7 @@ class PassStatics:
     max_val: int
     blending: int
     exact_edges: bool
-    backend: str  # "taps" | "pallas"
+    backend: str  # "taps" | "conv" | "pallas"
     # the fused pass's tier (`_fused_tier`): "float32", "bfloat16" (the bank
     # rounded to bf16 with error diffusion: raisr_tpu's mxu_passes=1 at 8
     # bits, p_split at 10/16), "pcenter" (10 bits, 4 phases) or "int8"; the
@@ -66,7 +67,8 @@ class PassStatics:
     # per-pass (qstr, qcoh) bin edges as python floats (the bank's float32
     # values): the fused kernel's launch arguments and the taps hash's edges
     bank_edges: tuple = ()
-    # cheap-upscale resampler (RaisrConfig.resize_mode); only bilinear is ported
+    # cheap-upscale resampler (RaisrConfig.resize_mode); non-bilinear modes
+    # loop over the frames of a batch (no stacked formulation)
     resize_mode: str = "bilinear"
 
     @property
@@ -135,8 +137,8 @@ def raisr_pass(
             pbias=bank.pbias,
             inv_scale=bank.inv_scale,
         )
-    if s.backend != "taps":
-        raise RaisrError(f"backend {s.backend!r} is not ported to raisr_tpu_torch.")
+    if s.backend not in ("taps", "conv"):
+        raise RaisrError(f"backend {s.backend!r} is not a backend of raisr_tpu_torch.")
 
     gx, gy = hashing.gradients(cheap)
     weights = gaussian_weights(s.patch_size, s.bits)
@@ -144,11 +146,21 @@ def raisr_pass(
     buckets = hashing.hash_buckets(
         a, b, d, qstr, qcoh, s.qangle, s.qstrength, s.qcoherence
     )
-    ptype = hashing.pixel_types(
-        h, w, s.ratio_int, s.patch_margin, s.use_pixel_type, device=cheap.device
-    )
-    raw = apply_filters_taps(cheap, buckets * s.pixel_types + ptype, bank.filters,
-                             s.patch_size)
+    if s.backend == "conv":
+        if s.use_pixel_type:
+            raw = apply_filters_conv(cheap, buckets, bank.filters, s.patch_size,
+                                     s.pixel_types, s.patch_margin, s.ratio_int)
+        else:
+            # every pixel is phase 0 (the taps path's row bucket *
+            # pixel_types + 0): one conv over the bank's phase-0 rows
+            raw = apply_filters_conv(cheap, buckets, bank.filters[0::s.pixel_types],
+                                     s.patch_size, 1, s.patch_margin, 1)
+    else:
+        ptype = hashing.pixel_types(
+            h, w, s.ratio_int, s.patch_margin, s.use_pixel_type, device=cheap.device
+        )
+        raw = apply_filters_taps(cheap, buckets * s.pixel_types + ptype, bank.filters,
+                                 s.patch_size)
     return _finish_pass(
         cheap, raw,
         min_val=s.min_val, max_val=s.max_val, blending=int(s.blending),

@@ -1,6 +1,6 @@
-"""Cheap (bilinear) upscale, numerically compatible with IPP ippiResizeLinear.
+"""Cheap upscale, numerically compatible with IPP ippiResizeLinear.
 
-Port of raisr_tpu/ops/resize.py's bilinear forms. The reference upsamples with
+Port of raisr_tpu/ops/resize.py. The reference upsamples with
 IPP's linear resizer (reference: Library/Raisr.cpp:950-957) using the
 half-pixel mapping
 
@@ -17,10 +17,16 @@ the algorithm. Three forms, as in raisr_tpu:
 `cheap_upscale_stacked` upscales a guard-banded frame stack so that each
 frame's rows equal the per-frame upscale exactly.
 
+The reference also compile-selects cubic (B=0, C=0.75) and 3-lobe Lanczos
+resizers (USE_BICUBIC/USE_LANCZOS, Raisr_globals.h:63-81); here they are a
+runtime knob (RaisrConfig.resize_mode) on the same half-pixel mapping and
+border replicate: `resample_upscale` sums 4 or 6 taps per axis, rows then
+columns, in float32, tap 0 first.
+
 Everything works on the last two dims of [..., H, W]. The index and weight
 vectors are built on the host once per (sizes, device) and cached, so only
 the first call at a shape copies them to the device: run a shape once before
-capturing it in a CUDA graph. Cubic and lanczos raise `RaisrError`.
+capturing it in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -139,19 +145,83 @@ def bilinear_upscale(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
                       _axis_vectors(in_w, out_w, False, img.device))
 
 
+def _cubic_kernel(x: np.ndarray, c: float = 0.75) -> np.ndarray:
+    """Two-parameter cubic with B=0 (Mitchell-Netravali family): the
+    reference's USE_BICUBIC configures IPP with (0, 0.75), "the value
+    OpenCV is using" (Raisr.cpp:458-473, Raisr_globals.h:67-70)."""
+    ax = np.abs(x)
+    inner = (2.0 - c) * ax**3 + (c - 3.0) * ax**2 + 1.0
+    outer = c * (-(ax**3) + 5.0 * ax**2 - 8.0 * ax + 4.0)
+    return np.where(ax <= 1.0, inner, np.where(ax < 2.0, outer, 0.0))
+
+
+def _lanczos3_kernel(x: np.ndarray) -> np.ndarray:
+    """3-lobe Lanczos: the reference's USE_LANCZOS configures IPP with
+    lobes=3 (Raisr.cpp:464,474, Raisr_globals.h:72-75)."""
+    x = np.asarray(x, np.float64)
+    out = np.sinc(x) * np.sinc(x / 3.0)
+    return np.where(np.abs(x) < 3.0, out, 0.0)
+
+
+_MODES = {"bilinear": None, "cubic": (_cubic_kernel, 2), "lanczos": (_lanczos3_kernel, 3)}
+
+
+def _axis_taps(in_size: int, out_size: int, mode: str):
+    """Static per-axis resample taps: (idx [ntaps, out] border-clipped,
+    weights [ntaps, out] normalized) for the half-pixel mapping."""
+    kern, support = _MODES[mode]
+    dst = np.arange(out_size, dtype=np.float64)
+    src = (dst + 0.5) * (in_size / out_size) - 0.5
+    lo = np.floor(src).astype(np.int64) - support + 1
+    ntaps = 2 * support
+    idx = np.stack([lo + t for t in range(ntaps)])  # [ntaps, out]
+    wgt = kern(src[None, :] - idx)
+    wgt = wgt / wgt.sum(axis=0, keepdims=True)  # partition of unity
+    idx = np.clip(idx, 0, in_size - 1)  # border replicate
+    return idx.astype(np.int32), wgt.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=128)
+def _tap_vectors(in_size: int, out_size: int, mode: str, device: torch.device):
+    """`_axis_taps` on `device`: (idx [ntaps, out] int64, weights [ntaps, out])."""
+    idx, wgt = _axis_taps(in_size, out_size, mode)
+    return (torch.tensor(idx.astype(np.int64), device=device),
+            torch.tensor(wgt, device=device))
+
+
+def resample_upscale(
+    img: torch.Tensor, out_h: int, out_w: int, mode: str
+) -> torch.Tensor:
+    """Separable resize of the last two dims in the selected mode (float32
+    out, un-rounded). Each axis is a sum over its taps of gathered rows (then
+    columns) times the tap's weights, accumulated from tap 0 up, the order
+    raisr_tpu sums them in."""
+    if mode == "bilinear":
+        return bilinear_upscale(img, out_h, out_w)
+    if mode not in _MODES:
+        raise RaisrError(f"resize mode: {mode} is NOT supported.")
+    in_h, in_w = img.shape[-2:]
+    img = img.to(torch.float32)
+    ridx, rw = _tap_vectors(in_h, out_h, mode, img.device)
+    cidx, cw = _tap_vectors(in_w, out_w, mode, img.device)
+    rows = img.index_select(-2, ridx[0]) * rw[0][:, None]
+    for t in range(1, ridx.shape[0]):
+        rows = rows + img.index_select(-2, ridx[t]) * rw[t][:, None]
+    out = rows.index_select(-1, cidx[0]) * cw[0]
+    for t in range(1, cidx.shape[0]):
+        out = out + rows.index_select(-1, cidx[t]) * cw[t]
+    return out
+
+
 def cheap_upscale(
     img: torch.Tensor, out_h: int, out_w: int, bits: int,
     mode: str = "bilinear",
 ) -> torch.Tensor:
     """Integer-valued cheap upscale (float32 holding ints in [0, 2^bits-1]).
 
-    Works on [H, W] or any batch of planes [..., H, W]."""
-    if mode != "bilinear":
-        raise RaisrError(
-            f"resize mode: {mode} is not ported to raisr_tpu_torch yet."
-        )
+    Works on [H, W] or any batch of planes [..., H, W], in every mode."""
     in_h, in_w = img.shape[-2:]
-    if not (out_h == 2 * in_h and out_w == 2 * in_w):
+    if mode == "bilinear" and not (out_h == 2 * in_h and out_w == 2 * in_w):
         # non-2x: the exact-integer form where the ratio allows it (the 2x
         # slice-interleave form is exact too, and stays the 2x fast path);
         # with den 1.0 the same code is the float form
@@ -160,7 +230,7 @@ def cheap_upscale(
         cols = _axis_vectors(in_w, out_w, exact, img.device)
         out = _separable(img.to(torch.float32), rows, cols)
         return _rounded(out, rows[3] * cols[3], bits)
-    out = bilinear_upscale(img, out_h, out_w)
+    out = resample_upscale(img, out_h, out_w, mode)
     max_full = float((1 << bits) - 1)
     return torch.clamp(torch.floor(out + 0.5), 0.0, max_full)
 

@@ -118,8 +118,9 @@ def test_backend_resolution_and_refusals(models):
     assert _resolve_backend(RaisrConfig(), torch.device("cuda", 0)) == "pallas"
     assert _resolve_backend(RaisrConfig(backend="pallas"), cpu) == "pallas"
     assert _resolve_backend(RaisrConfig(backend="reference"), torch.device("cuda", 0)) == "taps"
-    with pytest.raises(RaisrError, match="xla"):
-        RaisrEngine(RaisrConfig(backend="xla"), tm, device="cpu")
+    # xla is the dense-conv formulation on any device (tests/test_torch_conv_backend.py)
+    assert _resolve_backend(RaisrConfig(backend="xla"), cpu) == "conv"
+    assert RaisrEngine(RaisrConfig(backend="xla"), tm, device="cpu")._statics.backend == "conv"
     with pytest.raises(RaisrError, match="multi-device"):
         RaisrEngine(RaisrConfig(), tm, shard="data=2", device="cpu")
     # every tier is served, at the tier raisr_tpu's pass_statics gives: bf16

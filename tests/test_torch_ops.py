@@ -61,10 +61,13 @@ def test_cheap_upscale_unported_modes_raise():
     img = _t(smooth(8, 8))
     # every bilinear ratio is ported (tests/test_torch_resize.py) ...
     assert tuple(t_cheap(img, 12, 12, 8).shape) == (12, 12)
-    # ... the cubic and lanczos resamplers are not
+    # ... and so are the cubic and lanczos resamplers
+    # (tests/test_torch_resize_modes.py); a mode that is none of the three
+    # is what raises
     for mode in ("cubic", "lanczos"):
-        with pytest.raises(RaisrError, match=mode):
-            t_cheap(img, 16, 16, 8, mode=mode)
+        assert tuple(t_cheap(img, 16, 16, 8, mode=mode).shape) == (16, 16)
+    with pytest.raises(RaisrError, match="bicubic"):
+        t_cheap(img, 16, 16, 8, mode="bicubic")
 
 
 def test_gradients_bit_identical():

@@ -116,3 +116,69 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+_SUBSAMPLING = {"420": (2, 2), "422": (1, 2), "444": (1, 1)}
+_Y4M_CTAG = {8: "", 10: "p10", 16: "p16"}
+
+
+def write_bank_folder(folder, passes: int = 2, seed: int = 0, pixel_types: int = 4,
+                      bits: int = 8) -> str:
+    """Write `passes` seeded banks (make_filters) as a filter folder of `bits`
+    in the reference's on-disk format, loadable by both packages."""
+    from raisr_tpu_torch.model.loader import FilterBank
+    from raisr_tpu_torch.train.export import save_filter_folder
+
+    rng = np.random.default_rng(seed)
+    banks = [
+        FilterBank(filters=make_filters(rng, pixel_types),
+                   qstr=np.asarray(QSTR, np.float32), qcoh=np.asarray(QCOH, np.float32),
+                   pixel_types=pixel_types, taps=121, source_dtype="fp32")
+        for _ in range(passes)
+    ]
+    save_filter_folder(str(folder), banks, bits=bits)
+    return str(folder)
+
+
+def write_y4m_clip(path, n_frames: int, h: int, w: int, seed: int = 0, bits: int = 8,
+                   subsampling: str = "420") -> list[tuple]:
+    """Write a seeded Y4M clip byte by byte (through neither package's
+    writer): smooth Y, uniform U/V in the video range, or Y alone for
+    "mono". Returns the frames as (y, u, v) arrays (u, v None for mono)."""
+    dt = np.uint8 if bits == 8 else np.dtype("<u2")
+    rng = np.random.default_rng(seed + 1000)
+    ys = smooth_frames(n_frames, h, w, bits, seed)
+    ctag = "mono" + ("" if bits == 8 else str(bits)) if subsampling == "mono" else (
+        subsampling + ("jpeg" if (subsampling, bits) == ("420", 8) else _Y4M_CTAG[bits]))
+    frames = []
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F25:1 Ip A1:1 C{ctag}\n".encode())
+        for i in range(n_frames):
+            y = ys[i].astype(dt)
+            u = v = None
+            if subsampling != "mono":
+                sv, sh = _SUBSAMPLING[subsampling]
+                lo, hi = (16, 240) if bits == 8 else (64, 960)
+                u = rng.integers(lo, hi, (h // sv, w // sh)).astype(dt)
+                v = rng.integers(lo, hi, (h // sv, w // sh)).astype(dt)
+            f.write(b"FRAME\n")
+            for p in (y, u, v):
+                if p is not None:
+                    f.write(p.tobytes())
+            frames.append((y, u, v))
+    return frames
+
+
+def write_bank_and_clip(root, n_frames: int = 5, h: int = 24, w: int = 32,
+                        passes: int = 2, seed: int = 0, bits: int = 8,
+                        subsampling: str = "420", pixel_types: int = 4):
+    """A seeded bank folder and a seeded Y4M clip under `root` (a tmp_path):
+    returns (folder, clip path, frames as (y, u, v) arrays). The stream,
+    video and CLI tests share it; chip_smoke.py keeps its own copy of the
+    recipe, since it imports nothing from the tests."""
+    import os
+
+    folder = write_bank_folder(os.path.join(str(root), "bank"), passes, seed,
+                               pixel_types, bits)
+    clip = os.path.join(str(root), "clip.y4m")
+    return folder, clip, write_y4m_clip(clip, n_frames, h, w, seed, bits, subsampling)
