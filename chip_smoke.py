@@ -91,13 +91,27 @@ folder and loaded from it; 24 distinct 8-bit YUV420 1080p frames from a seed):
  19. two-pass mode 2 (run_tier): 4 frames 1080p, 2x, 2 passes, float32; pass
      1 over the 4416x1920 LR stack (guard 12), pass 2 over the 4K stack
      (guard 24), each launch and every frame against its plain version.
+then filter training (run_train):
+ 20. `raisr-torch train` on a Y4M clip of 8 seeded 1080p HR frames with edges
+     and texture (the 8th held out): 2x with 2 passes and --ct-refine
+     (blending 2), then 1.5x with 1 pass; the launches of the normal-equation
+     kernel (csrc/normal_eq.cu), apply_filters and launch B against what each
+     run makes, and the hold-out PSNR of the trained bank and of bilinear;
+     on one 1080p pair the kernel against its plain version accumulated in
+     float64 (within 1e-4 of each filter's largest entry, plain and weighted),
+     two runs bit for bit, the banks solved from both (rtol 2e-3, atol 2e-4);
+     its time beside its bound, the plain version and the one-hot
+     torch.matmul form of raisr_tpu's _accumulate_chunked (timed on 8 chunks,
+     scaled); the trained 2x bank served from its folder, 4 frames through
+     process_batch_device against the plain passes (bit for bit) and the taps
+     engine, and the bf16 and int8 tiers beside float32 on it.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. A time is one pair of CUDA events around back-to-back calls,
 over their count, so the device's pace and not the host's enqueue sets it. The `kernels` line gives every kernel form its bound (bound_ms,
 bound_by: the larger of its bytes over 3.35 TB/s and its dot's operations
 over the peak of their type) and library_ms, the time of one PyTorch call
 computing the same function where there is one (torch._int_mm for the
-probe). Its last line is {"ok": true, "device": {...}}. It imports nothing of jax or
+probe, the one-hot torch.matmul form for the normal equations). Its last line is {"ok": true, "device": {...}}. It imports nothing of jax or
 raisr_tpu, and exits non-zero, with no result line, when there is no CUDA
 card or any phase fails.
 """
@@ -132,6 +146,15 @@ DOT_OPS = 2 * 121  # a pixel's 121-tap dot: one multiply and one add per tap
 # 11-tap vertical and horizontal sums of 3 maps (2 * 3 * 11 * 2), 3 scalings
 # and ~30 of eigen-analysis, atan2 and binning
 HASH_OPS = 170
+# phase 20: HR frames of the training clip; the one-hot form's chunk (JAX's
+# TrainConfig.chunk); a pixel's multiply-adds in the normal equations (the
+# upper triangle of the 122 x 122 augmented Gram: Q's 121 x 122 / 2 and V's
+# 121); the kernel against its float64 plain version, relative to each
+# filter's largest entry (sound runs read ~3e-7 on 1080p pairs)
+TRAIN_FRAMES = 8
+ONEHOT_CHUNK = 2048
+NORMAL_EQ_MACS = 121 * 122 // 2 + 121
+NORMAL_EQ_MAX_REL_ERR = 1e-5
 
 
 def card_line() -> str:
@@ -363,6 +386,9 @@ def _kernel_group(name: str) -> str:
     for key, label in (("hash_bucket_kernel", "launch A1 hash_bucket_kernel"),
                        ("gather_resident_kernel", "launch A2 gather_resident_kernel"),
                        ("epilogue_kernel", "launch B epilogue_kernel"),
+                       ("gram_partials_kernel", "normal_eq gram_partials_kernel"),
+                       ("gram_reduce_kernel", "normal_eq gram_reduce_kernel"),
+                       ("Sort", "sort"), ("sort", "sort"),
                        ("CatArrayBatchedCopy", "PyTorch cat"),
                        ("gather", "PyTorch gather (non-2x resize)"),
                        ("elementwise", "PyTorch elementwise")):
@@ -1314,7 +1340,7 @@ def run_stream(dev, card: str, tmp: str, kw: dict, resident_ms: float):
     return row, dict(folder=folder, frames=frames, want=want, rates=rates)
 
 
-def cli_lines(argv) -> list[str]:
+def cli_lines(argv, phase: int = 17) -> list[str]:
     """Run the port's CLI in process; returns what it printed on stdout."""
     import contextlib
     import io
@@ -1325,7 +1351,7 @@ def cli_lines(argv) -> list[str]:
     with contextlib.redirect_stdout(buf):
         rc = cli_main(argv)
     if rc != 0:
-        raise SystemExit(f"phase 17 failed: raisr-torch {' '.join(argv)} returned {rc}")
+        raise SystemExit(f"phase {phase} failed: raisr-torch {' '.join(argv)} returned {rc}")
     return buf.getvalue().strip().splitlines()
 
 
@@ -1439,6 +1465,315 @@ def run_modes(y, u, v, dev, card: str, model, kw: dict) -> None:
           f"ms a frame; the caller's TF32 flag restored: {still_on}")
     if not (frac < FUZZ_MAX_FRAC and med == 0.0 and still_on):
         raise SystemExit("phase 18 failed: backend xla against reference")
+
+
+def make_training_frames(n: int, h: int, w: int, seed: int, device) -> list:
+    """n 8-bit HR frames with edges and texture in the video range the
+    hold-out eval clamps to: make_patchwork's gratings in 32-pixel blocks
+    averaged with make_planes' smooth noise, mapped to [16, 235], plus
+    Gaussian noise of sigma 2; uint8 numpy planes."""
+    import torch
+
+    out = []
+    for i in range(n):
+        patch = make_patchwork(h, w, seed + i, device, blk=32)
+        smooth = make_planes(1, h, w, seed + 100 + i, device)[0].to(torch.float32)
+        gen = torch.Generator(device=device).manual_seed(seed + 200 + i)
+        noise = 2.0 * torch.randn((h, w), generator=gen, device=device)
+        img = 16 + (0.5 * patch + 0.5 * (smooth - 16) * 255 / 219) * 219 / 255 + noise
+        out.append(torch.clamp(torch.round(img), 16, 235).to(torch.uint8).cpu().numpy())
+    return out
+
+
+def onehot_accumulate(q, v, cheap, label, idx, n_chunks: int, chunk: int = ONEHOT_CHUNK):
+    """raisr_tpu's _accumulate_chunked (train/trainer.py:119-147) as
+    torch.matmul on the card, over the first n_chunks chunks of core pixels
+    in raster order: each chunk's 11x11 patches (its im2col), the transpose
+    of its [chunk, num_filters] one-hot matrix times the [chunk, 121 * 121]
+    outer products into Q and times the label-weighted patches into V, in
+    float32 (TF32 is off for the whole run)."""
+    import torch
+
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+
+    w, core_w, nf = cheap.shape[1], idx.shape[1], q.shape[0]
+    offs = ne._tap_offsets(w, cheap.device)
+    flat = idx.reshape(-1).to(torch.int64)
+    filters = torch.arange(nf, device=cheap.device)
+    for k in range(n_chunks):
+        pos = torch.arange(k * chunk, min((k + 1) * chunk, flat.numel()), device=cheap.device)
+        ctr = (pos // core_w + ne.CORE) * w + pos % core_w + ne.CORE
+        p = cheap.reshape(-1)[ctr[:, None] + offs[None, :]]
+        onehot = (flat[pos][:, None] == filters[None, :]).to(torch.float32)
+        v += onehot.T @ (p * label.reshape(-1)[ctr][:, None])
+        q += (onehot.T @ (p[:, :, None] * p[:, None, :]).reshape(len(pos), -1)).reshape(q.shape)
+
+
+def training_split(fn, calls: int = 1) -> str:
+    """Where the time of `calls` calls of a training function goes, a call
+    at a time: a torch.profiler trace (after one untraced call) gives the
+    wall time on the host's clock, the device's busy time (the union of its
+    kernels' intervals) and the device time by kernel group (`_kernel_group`:
+    the normal-equation kernel's two launches, the sort of its glue, and
+    PyTorch's elementwise kernels: the 2-D hash, the resize, the planes'
+    arithmetic)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels, marks = trace(fn, calls, os.path.join(tmp, "train.json"))
+    t0 = min(float(e["ts"]) for e in marks)
+    wall = max(float(e["ts"]) + float(e["dur"]) for e in marks + kernels) - t0
+    busy = _union_us((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels)
+    parts = ", ".join(f"{g} {us / calls / 1000:.4f}" for g, us in
+                      sorted(kernel_groups(kernels).items(), key=lambda kv: -kv[1]))
+    return (f"wall {wall / calls / 1000:.3f} ms, device busy {busy / calls / 1000:.3f} ms "
+            f"({100 * busy / wall:.1f}%), {len(kernels) / calls:g} kernels; device ms: {parts}")
+
+
+def run_train(dev, card: str, tmp: str, kw: dict) -> dict:
+    """Phase 20: filter training on the card through `raisr-torch train` (no
+    --device: cuda is the default) on a Y4M clip of TRAIN_FRAMES seeded 1080p
+    HR frames, the 8th held out: 2x with 2 passes and --ct-refine (blending
+    2), then 1.5x with 1 pass; each run's launches of the accumulation kernel,
+    apply_filters and launch B against what the path makes, and its hold-out
+    report. Then, on one 1080p pair, the kernel against its plain version
+    accumulated in float64 (plain and weighted), twice for determinism, the
+    banks solved from both, and its pixel counts exactly; the path's other
+    kernels on the path's own inputs (apply_filters on the CT sweep's
+    provisional plane and on pass 2's input, launch B on pass 2's input, the
+    1.5x fused pass on the held-out frame), bit for bit against their plain
+    versions; the times; the trained 2x bank served from its folder (4 frames
+    through process_batch_device) against the plain passes and the taps
+    engine, and the bf16 and int8 tiers beside float32 on it. Returns the
+    kernel's `kernels` row, and the errors of the other kernels by the name
+    of their rows."""
+    import numpy as np
+    import torch
+
+    from raisr_tpu_torch import RaisrConfig, RaisrEngine, load_model
+    from raisr_tpu_torch.engine import Frame
+    from raisr_tpu_torch.ops import census
+    from raisr_tpu_torch.ops.cuda import filter_kernel as flk
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+    from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
+    from raisr_tpu_torch.ops.pipeline import pass_statics
+    from raisr_tpu_torch.ops.resize import cheap_upscale
+    from raisr_tpu_torch.train import trainer as tr
+
+    h, w = LR_H, LR_W  # 1080p HR frames; the 2x LR frames are 540x960
+    hrs = make_training_frames(TRAIN_FRAMES, h, w, 20, dev)
+    chroma = np.full((h // 2, w // 2), 128, np.uint8)
+    clip = os.path.join(tmp, "train_hr.y4m")
+    write_y4m(clip, [Frame(y=x, u=chroma, v=chroma) for x in hrs])
+    n_train = TRAIN_FRAMES - 1
+
+    def train(tag: str, argv: list, want: dict):
+        zero(fk.LAUNCHES)
+        fk.EPILOGUE_LAUNCHES = flk.LAUNCHES = flk.SINGLE_LAUNCHES = ne.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lines = cli_lines(["train", "-i", clip, "--eval-holdout", str(TRAIN_FRAMES), *argv],
+                          phase=20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(normal_eq=ne.LAUNCHES, apply_filters=flk.LAUNCHES + flk.SINGLE_LAUNCHES,
+                      pass_epilogue=fk.EPILOGUE_LAUNCHES, fused_passes=sum(fk.LAUNCHES.values()))
+        report = json.loads(next(x for x in reversed(lines) if x.startswith('{"eval"')))["eval"]
+        sweeps = want["normal_eq"] // n_train
+        print(f"phase 20 raisr-torch train {tag} on {card}: {n_train} training frames {w}x{h} "
+              f"and 1 held out, {wall:.3f} s wall = {wall / sweeps:.3f} s a sweep ({sweeps} "
+              f"sweeps; reading the clip and the hold-out eval included); launches {counts}, "
+              f"expected {want}; hold-out {json.dumps(report)}")
+        if counts != want:
+            raise SystemExit(f"phase 20 failed: {tag} launch counts")
+        if not (report["holdout_frames"] == 1
+                and report["trained_psnr_db"] > report["bilinear_psnr_db"] > 0):
+            raise SystemExit(f"phase 20 failed: {tag} hold-out report")
+        return counts["normal_eq"], wall / sweeps
+
+    bank2 = os.path.join(tmp, "trained_2x")
+    # sweeps: plain, CT-weighted (apply_filters on the provisional bank) and
+    # pass 2 (apply_filters and launch B for the pass-1 output); the held-out
+    # frame is served by two fused passes (each with its launch B)
+    launches, sweep_s = train("2x, 2 passes, --ct-refine (blending 2)",
+                              ["-o", bank2, "--passes", "2", "--ct-refine", "--blending", "2"],
+                              dict(normal_eq=3 * n_train, apply_filters=2 * n_train,
+                                   pass_epilogue=n_train + 2, fused_passes=2))
+    bank15 = os.path.join(tmp, "trained_15x")
+    launches15, _ = train("1.5x, 1 pass", ["-o", bank15, "--ratio", "1.5"],
+                          dict(normal_eq=n_train, apply_filters=0, pass_epilogue=1,
+                               fused_passes=1))
+
+    # -- the kernel against its plain version, on one 1080p pair -----------
+    cfg = tr.TrainConfig()
+    lr, hr = tr.degrade(hrs[0], 2.0, 8)
+    hr_t = torch.tensor(hr.astype(np.float32), device=dev)
+    cheap = cheap_upscale(torch.tensor(lr.astype(np.float32), device=dev), h, w, 8)
+    buckets, idx = tr._filter_index(cheap, cfg)
+    s = census.randomness_weight(cheap).contiguous()
+    errs = []
+    for name, label, weight in (("plain", hr_t, None),
+                                ("weighted (Randomness s)",
+                                 (hr_t - (1.0 - s) * cheap).contiguous(), s)):
+        q, v = tr.init_accumulators(cfg, dev)
+        ne.accumulate_normal_eq(q, v, cheap, label, idx, weight)
+        q2, v2 = tr.init_accumulators(cfg, dev)
+        ne.accumulate_normal_eq(q2, v2, cheap, label, idx, weight)
+        q64 = torch.zeros(q.shape, dtype=torch.float64, device=dev)
+        v64 = torch.zeros(v.shape, dtype=torch.float64, device=dev)
+        ne.normal_eq_reference(q64, v64, cheap, label, idx, weight)
+        torch.cuda.synchronize()
+        dq, dv = (q.double() - q64).abs(), (v.double() - v64).abs()
+
+        def rel(d, ref, dims):
+            top = ref.abs().amax(dim=dims)
+            return float(torch.where(top > 0, d.amax(dim=dims) / top, d.amax(dim=dims)).max())
+
+        rel_q, rel_v = rel(dq, q64, (1, 2)), rel(dv, v64, 1)
+        same = torch.equal(q, q2) and torch.equal(v, v2)
+        bank_k = tr.solve_filters(q, v, cfg)
+        bank_p = tr.solve_filters(q64.to(torch.float32), v64.to(torch.float32), cfg)
+        bank_ok = torch.allclose(bank_k, bank_p, rtol=2e-3, atol=2e-4)
+        print(f"phase 20 normal_eq vs plain (float64) on one {w}x{h} pair, {name}: "
+              f"{idx.numel()} core pixels in {int(torch.unique(idx).numel())} filters; max "
+              f"|dQ_f| / max|Q_f| {rel_q:.3e}, max |dV_f| / max|V_f| {rel_v:.3e} (bound "
+              f"{NORMAL_EQ_MAX_REL_ERR:g}); max |dQ| {float(dq.max()):.6g}, |dV| "
+              f"{float(dv.max()):.6g}; two runs bit-identical: {same}; solved banks max diff "
+              f"{float((bank_k - bank_p).abs().max()):.3e} (rtol 2e-3, atol 2e-4): {bank_ok}")
+        if not (bool(torch.isfinite(q).all()) and rel_q <= NORMAL_EQ_MAX_REL_ERR
+                and rel_v <= NORMAL_EQ_MAX_REL_ERR and same and bank_ok):
+            raise SystemExit(f"phase 20 failed: normal_eq against its plain version, {name}")
+        errs.append(max(float(dq.max()), float(dv.max())))
+    # every core pixel counted once, in its own filter: on a plane of ones
+    # each entry of Q[f] is f's pixel count, and V[f] the sum over f's pixels
+    # of an integer label in [0, 7), both exact (integers below 2^24)
+    nf = cfg.num_filters
+    lab = (torch.arange(h * w, device=dev) % 7).reshape(h, w).to(torch.float32)
+    qc, vc = tr.init_accumulators(cfg, dev)
+    ne.accumulate_normal_eq(qc, vc, torch.ones_like(cheap), lab, idx)
+    flat = idx.reshape(-1).to(torch.int64)
+    count = torch.bincount(flat, minlength=nf).to(torch.float64)
+    lsum = torch.zeros(nf, dtype=torch.float64, device=dev).index_add_(
+        0, flat, lab[ne.CORE: h - ne.CORE, ne.CORE: w - ne.CORE].reshape(-1).double())
+    count_err = max(float((qc.double() - count[:, None, None]).abs().max()),
+                    float((vc.double() - lsum[:, None]).abs().max()))
+    print(f"phase 20 normal_eq pixel counts on a plane of ones, one {w}x{h} pair: Q[f] vs "
+          f"bincount(idx) and V[f] vs the label's sum per filter, max abs error {count_err} "
+          f"(largest count {int(count.max())})")
+    if count_err != 0.0:
+        raise SystemExit("phase 20 failed: normal_eq's pixel counts")
+
+    # -- the path's other kernels, on the path's own inputs ------------------
+    # the CT sweep's provisional plane: the 2-D hash's int32 buckets and the
+    # plain sweep's bank (the traced sweep below is that sweep: the CLI's
+    # train_filterbank on the same pairs)
+    pairs = [tr.degrade(x, 2.0, 8) for x in hrs[:n_train]]
+    sweep = {}
+    split_sweep = training_split(
+        lambda: sweep.update(bank=tr.train_filterbank(pairs, cfg, dev)))
+    f0 = torch.tensor(sweep["bank"].filters, device=dev)
+    akw = dict(patch_size=cfg.patch_size, pixel_types=cfg.pixel_types,
+               patch_margin=cfg.patch_size // 2, ratio=int(cfg.ratio))
+    held = {"filter_kernel": [hold(
+        "20 apply_filters", f"the CT sweep's provisional plane, one {w}x{h} pair, sweep 1's "
+        f"bank", flk.apply_filters(cheap, buckets, f0, **akw),
+        flk.apply_filters_reference(cheap, buckets, f0, **akw))]}
+    # pass 2's input: the taps pass of the trained pass-1 bank with the
+    # statics of RaisrConfig(ratio 2, passes 1)
+    rcfg = RaisrConfig(filterfolder=bank2, passes=2)
+    model = load_model(bank2, rcfg)
+    st = pass_statics(RaisrConfig(ratio=2.0, passes=1), model, "taps")
+    b1 = tr._hash(cheap, st.patch_size, st.bits, *st.bank_edges[0], st.qangle, st.qstrength,
+                  st.qcoherence)
+    f1 = torch.tensor(model.banks[0].filters, device=dev)
+    akw1 = dict(patch_size=st.patch_size, pixel_types=4 if st.use_pixel_type else 1,
+                patch_margin=st.patch_margin, ratio=st.ratio_int)
+    raw1 = flk.apply_filters(cheap, b1, f1, **akw1)
+    held["filter_kernel"].append(hold(
+        "20 apply_filters", f"pass 2's input, one {w}x{h} pair, the trained pass-1 bank", raw1,
+        flk.apply_filters_reference(cheap, b1, f1, **akw1)))
+    lm = st.patch_size // 2 + 1
+    held["full_kernel_epilogue"] = [hold(
+        "20 launch B", f"pass 2's input, one {w}x{h} pair (min {st.min_val}, max {st.max_val}, "
+        f"blending {st.blending}, exact edges {st.exact_edges})",
+        fk.pass_epilogue(cheap, raw1, min_val=st.min_val, max_val=st.max_val,
+                         blending=st.blending, patch_size=st.patch_size,
+                         exact_edges=st.exact_edges),
+        _finish_pass(cheap, raw1, min_val=st.min_val, max_val=st.max_val, blending=st.blending,
+                     loop_margin=lm, col_end=processed_col_end(w, lm, st.exact_edges)))]
+    # the 1.5x hold-out eval: one fused single-phase pass on the held-out
+    # frame's bilinear upscale, with the trained 1.5x bank
+    lr15, hr15 = tr.degrade(hrs[-1], 1.5, 8)
+    cheap15 = cheap_upscale(torch.tensor(lr15.astype(np.float32), device=dev), *hr15.shape, 8)
+    b15 = load_model(bank15, RaisrConfig(filterfolder=bank15, ratio=1.5, passes=1)).banks[0]
+    f15 = torch.tensor(b15.filters, device=dev)
+    kw15 = dict(kw, blending=2, qstr=tuple(float(e) for e in b15.qstr),
+                qcoh=tuple(float(e) for e in b15.qcoh))
+    held["full_kernel_single"] = [hold(
+        "20 fused 1.5x pass", f"the held-out frame, {lr15.shape[1]}x{lr15.shape[0]} -> "
+        f"{hr15.shape[1]}x{hr15.shape[0]}, "
+        f"the trained 1.5x bank", fk.raisr_pass_full_single(cheap15, f15, **kw15),
+        fk.raisr_pass_full_single_reference(cheap15, f15, **kw15))]
+
+    # -- times ------------------------------------------------------------------
+    ms = cuda_ms(lambda: ne.accumulate_normal_eq(q, v, cheap, hr_t, idx), 10, 2)
+    ms_plain = cuda_ms(lambda: ne.normal_eq_reference(q, v, cheap, hr_t, idx), 1, 0)
+    n_chunks = -(-idx.numel() // ONEHOT_CHUNK)
+    ms_onehot = cuda_ms(lambda: onehot_accumulate(q, v, cheap, hr_t, idx, n_chunks), 1, 0)
+    ops = 2 * NORMAL_EQ_MACS * idx.numel()
+    bnd = bound(nbytes(cheap, hr_t, idx, q, v), nbytes(q, v), ops, "float32")
+    print(f"phase 20 one plain 2x sweep (train_filterbank, {n_train} pairs from host memory) "
+          f"on {card}: {split_sweep}")
+    split = training_split(lambda: ne.accumulate_normal_eq(q, v, cheap, hr_t, idx), 5)
+    print(f"phase 20 times on {card}, one {w}x{h} pair: normal_eq {ms:.3f} ms (the wrapper's "
+          f"time: sort and run tables included; a call traced: {split}), "
+          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: {ops / 1e9:.2f} GFLOP at 67 "
+          f"TFLOP/s), plain {ms_plain:.3f} ms; the one-hot torch.matmul form "
+          f"(_accumulate_chunked) over all {n_chunks} chunks of {ONEHOT_CHUNK}: "
+          f"{ms_onehot:.3f} ms = {ms_onehot / ms:.1f}x the kernel; the 2x training run "
+          f"{sweep_s:.3f} s a sweep of {n_train} frames")
+
+    # -- serving the trained bank -------------------------------------------
+    y4 = torch.stack([torch.tensor(tr.degrade(x, 2.0, 8)[0].astype(np.uint8))
+                      for x in hrs[:4]]).to(dev)
+    engine = RaisrEngine(rcfg, model, device=dev)
+    zero(fk.LAUNCHES)
+    oy = engine.process_batch_device(y4)[0]
+    torch.cuda.synchronize()
+    print(f"phase 20 the trained 2x bank served from its folder: Y {tuple(oy.shape)} {oy.dtype}, "
+          f"fused passes {fk.LAUNCHES[('float32', 4)]}")
+    if tuple(oy.shape) != (4, h, w) or fk.LAUNCHES[("float32", 4)] != 2:
+        raise SystemExit("phase 20 failed: serving the trained bank")
+    filters = [torch.tensor(b.filters, device=dev) for b in model.banks]
+    taps = RaisrEngine(RaisrConfig(filterfolder=bank2, passes=2, backend="reference"), model,
+                       device=dev)
+    for i in range(4):
+        x = y4[i].to(torch.float32)
+        for p, b in enumerate(model.banks):
+            cur = cheap_upscale(x, h, w, 8) if p == 0 else x
+            x = fk.raisr_pass_full_reference(
+                cur, filters[p], blending=2, **dict(kw, qstr=tuple(float(e) for e in b.qstr),
+                                                    qcoh=tuple(float(e) for e in b.qcoh)))
+        frac, med, mx = diff_stats(oy[i], x)
+        tfrac, tmed, tmx = diff_stats(oy[i], taps.upscale_y(y4[i].to(torch.float32)))
+        print(f"phase 20 served frame {i}: vs plain passes differing {frac:.6%}, max {mx}; vs "
+              f"taps engine differing {tfrac:.6%}, median {tmed}, max {tmx}")
+        if mx > KERNEL_MAX_ABS_ERR or not (tfrac < FUZZ_MAX_FRAC and tmed == 0.0):
+            raise SystemExit(f"phase 20 failed: served frame {i}")
+    hr4 = torch.tensor(np.stack([tr.degrade(x, 2.0, 8)[1] for x in hrs[:4]]).astype(np.float32),
+                       device=dev)
+    bilinear = cheap_upscale(y4.to(torch.float32), h, w, 8)
+    quality = [f"float32 {psnr(oy, hr4):.3f} dB", f"bilinear {psnr(bilinear, hr4):.3f} dB"]
+    for dtype in ("auto", "int8"):
+        other = RaisrEngine(RaisrConfig(filterfolder=bank2, passes=2, dtype=dtype), model,
+                            device=dev).process_batch_device(y4)[0]
+        frac, med, mx = diff_stats(other, oy)
+        quality.append(f"{dtype} {psnr(other, hr4):.3f} dB (vs float32: differing {frac:.4%}, "
+                       f"median {med}, max {mx})")
+    print(f"phase 20 PSNR against HR of the 4 served (training) frames: {'; '.join(quality)}")
+    return kernel_row("normal_eq", "raisr_tpu_torch/csrc/normal_eq.cu",
+                      "raisr_tpu/train/trainer.py:119 (_accumulate_chunked, XLA's one-hot "
+                      "contraction; no Pallas kernel)", launches + launches15, errs, ms,
+                      ms_plain, bnd, ms_onehot), held
 
 
 def graph_step(engine, y, u, v):
@@ -1632,6 +1967,12 @@ def main() -> int:
     run_modes(y, u, v, dev, card, model, kw)
     row, _, _ = run_tier(19, "8-bit 2x 2-pass mode 2", RaisrConfig(passes=PASSES, mode=2),
                          model, (y, u, v), dev, card)
+    rows.append(row)
+    with tempfile.TemporaryDirectory() as tmp:
+        row, held = run_train(dev, card, tmp, kw)
+    # the training path's holds of earlier rows' kernels count in those rows
+    for r in rows:
+        r["max_abs_err"] = max([r["max_abs_err"], *held.get(r["name"], [])])
     rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -9,10 +9,12 @@ blending, passes, mode, evenoutput) on a standalone upscaler:
     raisr-torch upscale -i in.png -o out.png            # single image
     raisr-torch info --filterfolder filters_2x/filters_lowres
     raisr-torch bench --width 1920 --height 1080 --frames 20
+    raisr-torch train -i hr.y4m -o trained_bank --passes 2 --ct-refine
 
-Every subcommand that runs the engine takes --device (default cuda: the
-hand-written kernels on the card; a machine without one gets a RaisrError,
-never a silent CPU run). `--device cpu` runs the plain PyTorch passes.
+Every subcommand that runs the engine or the trainer takes --device
+(default cuda: the hand-written kernels on the card; a machine without one
+gets a RaisrError, never a silent CPU run). `--device cpu` runs the plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -287,12 +289,123 @@ def cmd_bench(args) -> int:
 
 
 def cmd_train(args) -> int:
-    """Training is not part of raisr_tpu_torch yet: refuse, naming the item."""
-    raise RaisrError(
-        "train is not ported to raisr_tpu_torch yet (ROADMAP "
-        "A11); train a bank with raisr_tpu's `raisr train` and serve its "
-        "folder here."
+    """Train a filter bank from HR sources on --device (the reference ships
+    only pre-trained banks; training is this framework's addition)."""
+    import itertools
+
+    import torch
+
+    from raisr_tpu_torch import video
+    from raisr_tpu_torch.engine import resolve_device
+    from raisr_tpu_torch.ops.resize import cheap_upscale
+    from raisr_tpu_torch.train import TrainConfig, save_filter_folder
+    from raisr_tpu_torch.train.trainer import (
+        degrade,
+        train_filterbank,
+        train_filterbank_ct,
+        train_filterbank_pass2,
     )
+    from raisr_tpu_torch.utils.metrics import psnr as psnr_fn
+
+    dev = resolve_device(args.device)  # refuses a missing card before any work
+    tcfg = TrainConfig(
+        ratio=args.ratio, bits=args.bits, lam=args.lam, chunk=args.chunk,
+        augment_symmetry=args.augment, resize_mode=args.resize_mode,
+    )
+
+    def hr_planes():
+        for path in args.inputs:
+            ext = os.path.splitext(path)[1].lower()
+            if ext in (".png", ".jpg", ".jpeg", ".bmp"):
+                yield video.read_png_as_yuv(path, args.bits).y
+            else:
+                reader = video.open_reader(path, None)
+                frames = iter(reader)
+                if args.frames:
+                    frames = itertools.islice(frames, args.frames)
+                for fr in frames:
+                    yield fr.y
+                reader.close()
+
+    def pairs():
+        for n, hr in enumerate(hr_planes(), 1):
+            lr, hr = degrade(hr, args.ratio, args.bits)
+            print(f"  accumulating frame {n} ({hr.shape[1]}x{hr.shape[0]})")
+            yield lr, hr
+
+    # hold out frames for the post-training quality eval
+    holdout = []
+
+    def train_pairs(collect_holdout=True):
+        for i, (lr, hr) in enumerate(pairs()):
+            if args.eval_holdout and i % args.eval_holdout == args.eval_holdout - 1:
+                if collect_holdout:
+                    holdout.append((lr, hr))
+            else:
+                yield lr, hr
+
+    if args.ct_refine:
+        # CT-blend-aware weighted least squares: a plain sweep, then the
+        # weighted re-solve; only the first sweep collects the holdout
+        sweeps = {"n": 0}
+
+        def pairs_factory():
+            first = sweeps["n"] == 0
+            sweeps["n"] += 1
+            if not first:
+                print("CT-refine sweep: re-accumulating blend-weighted "
+                      "normal equations ...")
+            return train_pairs(collect_holdout=first)
+
+        bank = train_filterbank_ct(pairs_factory, tcfg, blending=args.blending, device=dev)
+    else:
+        bank = train_filterbank(train_pairs(), tcfg, device=dev)
+    banks = [bank]
+    if args.passes == 2:
+        # second-pass (sharpening) bank on the pass-1 quantized output
+        print("training second-pass bank on pass-1 inference output ...")
+        banks.append(train_filterbank_pass2(train_pairs(collect_holdout=False), tcfg, bank,
+                                            device=dev))
+    save_filter_folder(
+        args.output, banks, bits=args.bits,
+        notes=f"trained by raisr_tpu_torch from {len(args.inputs)} source(s); "
+              f"2x box-downscale degradation; passes={args.passes}; "
+              f"augment_symmetry={args.augment}; ct_refine={args.ct_refine}",
+    )
+    print(f"wrote filter bank to {args.output}")
+
+    if holdout:
+        peak = float((1 << args.bits) - 1)
+
+        def plane(a):
+            return torch.as_tensor(a.astype(np.float32), device=dev)
+
+        def eval_bank(folder):
+            cfg = RaisrConfig(filterfolder=folder, bits=args.bits,
+                              ratio=args.ratio, passes=args.passes,
+                              blending=BlendingMode(args.blending),
+                              resize_mode=args.resize_mode)
+            eng = RaisrEngine(cfg, device=dev)
+            vals = [psnr_fn(eng.upscale_y(plane(lr)).cpu().numpy(), hr.astype(np.float32), peak)
+                    for lr, hr in holdout]
+            return sum(vals) / len(vals)
+
+        report = {
+            "holdout_frames": len(holdout),
+            "trained_psnr_db": round(eval_bank(args.output), 3),
+        }
+        cheap_vals = [
+            psnr_fn(cheap_upscale(plane(lr), *hr.shape, args.bits,
+                                  mode=args.resize_mode).cpu().numpy(),
+                    hr.astype(np.float32), peak)
+            for lr, hr in holdout
+        ]
+        # keyed by the resampler the bank was trained against
+        report[f"{args.resize_mode}_psnr_db"] = round(sum(cheap_vals) / len(cheap_vals), 3)
+        if args.eval_against:
+            report["reference_bank_psnr_db"] = round(eval_bank(args.eval_against), 3)
+        print(json.dumps({"eval": report}))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -348,9 +461,11 @@ def main(argv=None) -> int:
     p_bench.set_defaults(fn=cmd_bench)
 
     p_tr = sub.add_parser(
-        "train", help="train a filter bank (not ported yet: ROADMAP A11; "
-                      "the flags are raisr_tpu's)"
+        "train", help="train a 2x or 1.5x filter bank from HR video/images"
     )
+    p_tr.add_argument("--device", default="cuda",
+                      help="torch device training and the hold-out eval run on: "
+                           "cuda (default; cuda:N picks a card) or cpu")
     p_tr.add_argument("-o", "--output", required=True,
                       help="filter folder to write (reference format)")
     p_tr.add_argument("-i", "--inputs", nargs="+", required=True,

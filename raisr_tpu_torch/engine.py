@@ -59,6 +59,19 @@ def _resolve_backend(cfg: RaisrConfig, device: torch.device) -> str:
     return "pallas" if device.type == "cuda" else "taps"
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The torch device an entry point runs on: a CUDA device gets its index
+    (the current card when none is named); without a card a CUDA device is
+    refused with a RaisrError, never replaced by the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RaisrError("device cuda requested but CUDA is not available.")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def check_cuda_bank(model: RaisrModel) -> None:
     """Refuses a bank the CUDA pass cannot hash (`check_bank_limits`: more
     than 256 buckets, or more than 8 strength or coherence edges) with a
@@ -133,12 +146,7 @@ class RaisrEngine:
             from raisr_tpu_torch.utils import logging as _rlog
 
             _rlog.banner(raisr_tpu_torch.__version__)
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RaisrError("device cuda requested but CUDA is not available.")
-            if self.device.index is None:
-                self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model if model is not None else load_model(cfg.filterfolder, cfg)
         self._shard = shard if isinstance(shard, dict) else parse_shard_spec(shard)

@@ -121,5 +121,8 @@ def load_library() -> ctypes.CDLL:
     fn = lib.raisr_s8_matmul
     fn.argtypes = [vp, vp, vp, i, i, i, i, vp]
     fn.restype = i
+    fn = lib.raisr_normal_eq
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, i, vp, vp, i, vp, vp, vp, i, i, i, vp]
+    fn.restype = i
     _LIB = lib
     return lib

@@ -231,11 +231,68 @@ class TestOtherCommands:
             assert out["unit"] == "frames/sec" and out["value"] > 0
             assert "32x24->(64, 48)" in out["metric"]
 
-    def test_train_refused_naming_the_roadmap_item(self, assets, tmp_path, capsys):
-        assert cli_main(["train", "-o", str(tmp_path / "bank"), "-i", assets[1]]) == 1
-        err = capsys.readouterr().err
-        assert "[RAISR ERROR]" in err and "A11" in err
-        assert not (tmp_path / "bank").exists()
+    def test_train_refused_naming_the_roadmap_item(self, tmp_path, capsys):
+        """`raisr-torch train --device cpu` and raisr_tpu's `raisr train` on the
+        same clip (tests/test_train.py's hold-out clip: 10 frames of 64x48,
+        every 5th held out): the banks agree within the JAX package's
+        tolerance (rtol 2e-3, atol 2e-4, at --lam 0.05; filters a
+        hash-flipped pixel reached are left out, see test_torch_train.py),
+        the hold-out reports have the same keys and PSNRs within 0.05 dB.
+        Without --device the command needs the card: with none it returns 1
+        with the CUDA RaisrError and writes nothing."""
+        import torch
+
+        from raisr_tpu.model.loader import load_model as jax_load_model
+        from raisr_tpu.config import RaisrConfig as JaxRaisrConfig
+        from raisr_tpu.train import trainer as jt
+        from raisr_tpu_torch import RaisrConfig, load_model
+        from raisr_tpu_torch.engine import Frame
+        from raisr_tpu_torch.train import trainer as pt
+        from torch_port_util import hash_agreement
+
+        rng = np.random.default_rng(5)
+        src = str(tmp_path / "hr.y4m")
+        w, h, n = 64, 48, 10
+        wr = video.Y4MWriter(src, video.VideoFormat(w, h, 8, "420"))
+        x, y = np.meshgrid(np.arange(w), np.arange(h))
+        hrs = []
+        for i in range(n):
+            img = (110 + 70 * np.sin((x + 3 * i) / 7.0) + 50 * (y > h // 2)
+                   + rng.normal(0, 5, (h, w)))
+            hrs.append(np.clip(img, 16, 235).astype(np.uint8))
+            u = np.full((h // 2, w // 2), 128, np.uint8)
+            wr.write(Frame(y=hrs[-1], u=u, v=u))
+        wr.close()
+
+        def train(main, folder, *extra):
+            argv = ["train", "-o", str(tmp_path / folder), "-i", src, "--eval-holdout", "5",
+                    "--lam", "0.05", *extra]
+            assert main(argv) == 0
+            out = capsys.readouterr().out
+            return json.loads([ln for ln in out.splitlines() if '"eval"' in ln][-1])["eval"]
+
+        port = train(cli_main, "port", "--device", "cpu")
+        jax_report = train(jax_cli_main, "jax")
+        assert port.keys() == jax_report.keys() == {
+            "holdout_frames", "trained_psnr_db", "bilinear_psnr_db"}
+        assert port["holdout_frames"] == jax_report["holdout_frames"] == 2
+        for key in ("trained_psnr_db", "bilinear_psnr_db"):
+            assert abs(port[key] - jax_report[key]) <= 0.05, (key, port, jax_report)
+        bank = load_model(str(tmp_path / "port"),
+                          RaisrConfig(filterfolder=str(tmp_path / "port"))).banks[0]
+        jax_bank = jax_load_model(str(tmp_path / "jax"),
+                                  JaxRaisrConfig(filterfolder=str(tmp_path / "jax"))).banks[0]
+        pairs = [pt.degrade(f, 2.0, 8) for i, f in enumerate(hrs) if i % 5 != 4]
+        rows, flipped = hash_agreement(pairs, jt.TrainConfig(lam=0.05),
+                                       pt.TrainConfig(lam=0.05))
+        assert flipped < 0.02, flipped  # the cross-backend bar
+        np.testing.assert_allclose(bank.filters[rows], np.asarray(jax_bank.filters)[rows],
+                                   rtol=2e-3, atol=2e-4)
+
+        if not torch.cuda.is_available():
+            assert cli_main(["train", "-o", str(tmp_path / "card"), "-i", src]) == 1
+            assert "device cuda requested but CUDA is not available" in capsys.readouterr().err
+            assert not (tmp_path / "card").exists()
 
     def test_shard_reaches_the_engines_refusal(self, assets, tmp_path, capsys):
         folder, clip, _ = assets
@@ -258,8 +315,8 @@ class TestOtherCommands:
 
 
 def test_new_modules_import_no_jax(tmp_path):
-    """The serving modules, imported and run end to end in a fresh process,
-    pull in neither jax nor anything of raisr_tpu."""
+    """The serving and training modules, imported and run end to end in a
+    fresh process, pull in neither jax nor anything of raisr_tpu."""
     folder = write_bank_folder(tmp_path / "bank", passes=1, seed=3)
     code = (
         "import sys, numpy as np\n"
@@ -267,6 +324,10 @@ def test_new_modules_import_no_jax(tmp_path):
         "from raisr_tpu_torch import stream, video, io_native, cli\n"
         "from raisr_tpu_torch.utils import metrics, profiler\n"
         "from raisr_tpu_torch.ops import filter_apply, resize\n"
+        "from raisr_tpu_torch.train import trainer\n"
+        "from raisr_tpu_torch.ops.cuda import normal_eq\n"
+        "pairs = [trainer.degrade(np.arange(32 * 40).reshape(32, 40) % 251, 2.0, 8)]\n"
+        "trainer.train_filterbank(pairs, trainer.TrainConfig(), device='cpu')\n"
         f"rc = cli.main(['bench', '--width', '32', '--height', '24', '--frames', '1',\n"
         f"               '--device', 'cpu', '--filterfolder', {folder!r}])\n"
         "assert rc == 0\n"

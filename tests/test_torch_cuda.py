@@ -4,8 +4,10 @@ the fused pass (every tier: float32, bf16 at 8 bits and p_split at 10/16,
 pcenter, int8; 4 and 1 phases), launch B alone (pass_epilogue), the filter
 apply (apply_filters, 4 and 1 phases, banks of 1 to 256 buckets and the
 refusal above shared memory), launch A alone (apply_filters_hash), the
-engine's refusal of a bank over the CUDA pass's limits, and the s8 matmul
-probe.
+engine's refusal of a bank over the CUDA pass's limits, the s8 matmul
+probe, and filter training's normal-equation kernel (against its float64
+plain version, run to run, its refusals, and one train_filterbank on the
+card against the CPU).
 
 Every test here needs a CUDA card and skips without one. This file imports
 no jax, so it also runs where jax is absent; tests/conftest.py imports jax,
@@ -765,3 +767,164 @@ def test_stream_on_the_card_abandoned_then_reused():
     other = _host_frames(12, 72, 96, 51)
     got = list(sp.process(iter(other)))
     assert all(_frames_same(a, eng.process(f)) for a, f in zip(got, other))
+
+
+# -- filter training: the normal-equation kernel (ops/cuda/normal_eq.py) ----
+
+
+def _training_pair(dev, ratio=2.0, h=256, w=320, seed=30):
+    """A (cheap, hr) pair on the card from smooth HR content with fine noise,
+    LR by the CLI's degradation, and the filter index of its core."""
+    from raisr_tpu_torch.ops.resize import cheap_upscale
+    from raisr_tpu_torch.train import trainer as tr
+
+    rng = np.random.default_rng(seed)
+    hr = np.clip(smooth(h, w, seed=seed) + rng.integers(-2, 3, (h, w)), 0, 255)
+    lr, hr = tr.degrade(hr, ratio, 8)
+    hr_t = torch.tensor(hr.astype(np.float32), device=dev)
+    cheap = cheap_upscale(torch.tensor(lr.astype(np.float32), device=dev), *hr.shape, 8)
+    cfg = tr.TrainConfig(ratio=ratio)
+    return cfg, cheap, hr_t, tr._filter_index(cheap, cfg)[1]
+
+
+def _weighted(cheap, hr_t, weighted):
+    from raisr_tpu_torch.ops import census
+
+    if not weighted:
+        return hr_t, None
+    s = census.randomness_weight(cheap).contiguous()
+    return (hr_t - (1.0 - s) * cheap).contiguous(), s
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("ratio", [2.0, 1.5])
+def test_normal_eq_matches_plain_version(ratio, weighted):
+    """The kernel against its plain version accumulated in float64: within
+    1e-5 of each filter's largest entry (float32 sums in another order;
+    1080p pairs read ~3e-7), Q exactly symmetric, one launch counted."""
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+    from raisr_tpu_torch.train import trainer as tr
+
+    dev = require_cuda()
+    cfg, cheap, hr_t, idx = _training_pair(dev, ratio)
+    label, s = _weighted(cheap, hr_t, weighted)
+    q, v = tr.init_accumulators(cfg, dev)
+    q += 1.0  # accumulates into what is there
+    before = ne.LAUNCHES
+    ne.accumulate_normal_eq(q, v, cheap, label, idx, s)
+    q64 = torch.ones(q.shape, dtype=torch.float64, device=dev)
+    v64 = torch.zeros(v.shape, dtype=torch.float64, device=dev)
+    ne.normal_eq_reference(q64, v64, cheap, label, idx, s)
+    torch.cuda.synchronize()
+    assert ne.LAUNCHES == before + 1
+    assert torch.equal(q, q.transpose(1, 2))
+    for got, want, dims in ((q, q64, (1, 2)), (v, v64, (1,))):
+        err = (got.double() - want).abs().amax(dim=dims)
+        assert bool((err <= 1e-5 * want.abs().amax(dim=dims)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("ratio", [2.0, 1.5])
+def test_normal_eq_counts_every_pixel_once(ratio):
+    """On a plane of ones every entry of Q[f] is f's pixel count and V[f]
+    the sum of the label over f's pixels: exact, so a pixel dropped or taken
+    twice at a run's or a stage's edge shows."""
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+    from raisr_tpu_torch.train import trainer as tr
+
+    dev = require_cuda()
+    cfg, cheap, _, idx = _training_pair(dev, ratio, seed=35)
+    h, w = cheap.shape
+    label = (torch.arange(h * w, device=dev) % 7).reshape(h, w).to(torch.float32)
+    q, v = tr.init_accumulators(cfg, dev)
+    ne.accumulate_normal_eq(q, v, torch.ones_like(cheap), label, idx)
+    flat = idx.reshape(-1).long()
+    count = torch.bincount(flat, minlength=cfg.num_filters).float()
+    core = label[ne.CORE: h - ne.CORE, ne.CORE: w - ne.CORE].reshape(-1)
+    lsum = torch.zeros(cfg.num_filters, device=dev).index_add_(0, flat, core)
+    assert torch.equal(q, count[:, None, None].expand_as(q))
+    assert torch.equal(v, lsum[:, None].expand_as(v))
+
+
+def test_solve_filters_unaffected_by_tf32():
+    """The batched LU solve of solve_filters gives the same bank bit for bit
+    with the TF32 matmul flag on and off, so it needs no TF32 guard."""
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+    from raisr_tpu_torch.train import trainer as tr
+
+    dev = require_cuda()
+    cfg, cheap, hr_t, idx = _training_pair(dev, seed=36)
+    q, v = tr.init_accumulators(cfg, dev)
+    ne.accumulate_normal_eq(q, v, cheap, hr_t, idx)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        banks = []
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            banks.append(tr.solve_filters(q, v, cfg))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.equal(banks[0], banks[1])
+
+
+def test_normal_eq_is_deterministic():
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+    from raisr_tpu_torch.train import trainer as tr
+
+    dev = require_cuda()
+    cfg, cheap, hr_t, idx = _training_pair(dev, seed=31)
+    label, s = _weighted(cheap, hr_t, True)
+    runs = []
+    for _ in range(3):
+        q, v = tr.init_accumulators(cfg, dev)
+        runs.append(ne.accumulate_normal_eq(q, v, cheap, label, idx, s))
+    assert all(torch.equal(a[0], runs[0][0]) and torch.equal(a[1], runs[0][1]) for a in runs)
+
+
+def test_normal_eq_refuses_what_it_cannot_take():
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+    from raisr_tpu_torch.train import trainer as tr
+
+    dev = require_cuda()
+    cfg, cheap, hr_t, idx = _training_pair(dev, h=64, w=80, seed=32)
+    q, v = tr.init_accumulators(cfg, dev)
+    wide = torch.zeros((64, 160), device=dev)[:, ::2]
+    bad = [
+        dict(cheap=wide),  # not contiguous
+        dict(label=hr_t.double()),
+        dict(idx=idx.long()),
+        dict(idx=idx[1:].contiguous()),  # not the core's shape
+        dict(q=q.double()),
+        dict(v=v[:, :120].contiguous()),
+        dict(weight=torch.ones((64, 80), device=dev).t().contiguous()),
+        dict(idx=torch.full_like(idx, cfg.num_filters)),  # past the last filter
+    ]
+    for change in bad:
+        args = {**dict(q=q, v=v, cheap=cheap, label=hr_t, idx=idx, weight=None), **change}
+        before = ne.LAUNCHES
+        with pytest.raises(ValueError):
+            ne.accumulate_normal_eq(args["q"], args["v"], args["cheap"], args["label"],
+                                    args["idx"], args["weight"])
+        assert ne.LAUNCHES == before, change
+
+
+def test_train_filterbank_card_equals_cpu():
+    """One train_filterbank on the card against device="cpu" on the same two
+    pairs: the same hash on both (the same float32 operations in the same
+    order), Q summed in another order and solved by another LAPACK, so the
+    banks agree within the JAX package's tolerance (lam 0.05, as in
+    tests/test_torch_train.py)."""
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+    from raisr_tpu_torch.train import trainer as tr
+
+    dev = require_cuda()
+    pairs = []
+    for seed in (33, 34):
+        rng = np.random.default_rng(seed)
+        hr = np.clip(smooth(128, 160, seed=seed) + rng.integers(-2, 3, (128, 160)), 0, 255)
+        pairs.append(tr.degrade(hr, 2.0, 8))
+    cfg = tr.TrainConfig(lam=0.05)
+    before = ne.LAUNCHES
+    card = tr.train_filterbank(pairs, cfg)
+    assert ne.LAUNCHES == before + 2
+    cpu = tr.train_filterbank(pairs, cfg, device="cpu")
+    np.testing.assert_allclose(card.filters, cpu.filters, rtol=2e-3, atol=2e-4)

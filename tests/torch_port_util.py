@@ -182,3 +182,36 @@ def write_bank_and_clip(root, n_frames: int = 5, h: int = 24, w: int = 32,
                                pixel_types, bits)
     clip = os.path.join(str(root), "clip.y4m")
     return folder, clip, write_y4m_clip(clip, n_frames, h, w, seed, bits, subsampling)
+
+
+def hash_agreement(pairs, jax_cfg, cfg):
+    """Both packages' filter index of every core pixel of every training
+    pair and orientation (raisr_tpu's _patches_and_labels, the port's
+    _filter_index, each on its own cheap upscale). Returns (rows, flipped):
+    a mask of the filters whose pixel sets agree, and the share of pixels
+    whose index differs. The 2-D structure tensor is a convolution in JAX
+    (XLA's order of sums) and 121 shifted adds in the port, so a pixel near
+    a bin edge can flip bucket."""
+    import jax
+    import jax.numpy as jnp
+    from raisr_tpu.ops.resize import cheap_upscale as jax_cheap_upscale
+    from raisr_tpu.train import trainer as jt
+    from raisr_tpu_torch.ops.resize import cheap_upscale
+    from raisr_tpu_torch.train import trainer as pt
+
+    jax_index = jax.jit(lambda c, y: jt._patches_and_labels(c, y, jax_cfg)[1])
+    rows = np.ones(cfg.num_filters, bool)
+    n = flipped = 0
+    for lr, hr in pairs:
+        for lr_t, hr_t in pt._dihedral_transforms(lr, hr, cfg.augment_symmetry):
+            lr_f, hr_f = lr_t.astype(np.float32), hr_t.astype(np.float32)
+            cheap_j = jax_cheap_upscale(jnp.asarray(lr_f), *hr_f.shape, cfg.bits,
+                                        mode=cfg.resize_mode)
+            cheap_t = cheap_upscale(torch.tensor(lr_f), *hr_f.shape, cfg.bits,
+                                    mode=cfg.resize_mode)
+            ij = np.asarray(jax_index(cheap_j, jnp.asarray(hr_f)))
+            it = pt._filter_index(cheap_t, cfg)[1].numpy().reshape(-1)
+            bad = ij != it
+            rows[ij[bad]] = rows[it[bad]] = False
+            n, flipped = n + ij.size, flipped + int(bad.sum())
+    return rows, flipped / max(n, 1)
