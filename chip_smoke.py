@@ -5,6 +5,7 @@ Usage, from the root of a checkout:
 
     python3 chip_smoke.py                  # the smoke run
     python3 chip_smoke.py --profile DIR    # and torch.profiler phases
+    python3 chip_smoke.py --cards 4        # the multi-device paths over 4 cards
 
 It builds the port's CUDA kernels from the checkout's sources, then, for the
 2x path (the 4-phase kernel):
@@ -105,6 +106,23 @@ then filter training (run_train):
      scaled); the trained 2x bank served from its folder, 4 frames through
      process_batch_device against the plain passes (bit for bit) and the taps
      engine, and the bf16 and int8 tiers beside float32 on it.
+then the multi-device paths (run_shard), over meshes that name the card 2 or
+4 times, so that each shard runs in turn on it with real halo copies:
+ 21. stripe launches of the fused pass (stripes 0 and 1 of 4 at 2x, stripe 1
+     of 2 at 1.5x, from the striped resize) against the plain version, bit
+     for bit; process_batch_2d (data 2 x rows 2), process_batch_dp (data 4)
+     and process_plane_row_sharded (rows 4) on phase 2's frames, and rows 2
+     at 1.5x, in mode 2, at dtype auto and int8, each against the earlier
+     phase's unsharded output bit for bit with its launch counts; the
+     engine's refusal of shard="data=2" on one visible card;
+     train_step_sharded over data 4 on phase 20's 8 frames, plain and
+     CT-weighted, against one-device training and itself; the sharded
+     steps' device and host-enqueue times beside the unsharded step, at mesh
+     sizes 1, 2 and 4.
+With --cards N it runs none of these phases, but the engine's data=N, rows=N
+and data=N/2,rows=2 over N real cards against the unsharded engine and the
+one-card mesh, their times, a card-to-card copy, and train_step_sharded
+over N cards against the one-card mesh, bit for bit.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. A time is one pair of CUDA events around back-to-back calls,
 over their count, so the device's pace and not the host's enqueue sets it. The `kernels` line gives every kernel form its bound (bound_ms,
@@ -814,14 +832,15 @@ def run_bf16(y, u, v, dev, card: str, model, kw: dict, c2: dict, c15: dict,
     plane (1 phase); both serving paths through process_batch_device, eager
     and as a replayed CUDA graph, every frame against the plain bf16 passes;
     the difference to the float32 frames and the step times, printed; with
-    --profile DIR, 10 traced steps of each path."""
+    --profile DIR, 10 traced steps of each path. Returns the `kernels` rows
+    and the served Y frames by path ("2x", "1.5x")."""
     import torch
 
     from raisr_tpu_torch import RaisrConfig, RaisrEngine
     from raisr_tpu_torch.ops.cuda import full_kernel as fk
     from raisr_tpu_torch.ops.resize import cheap_upscale
 
-    rows = []
+    rows, served = [], {}
     for tag, mdl, bkw, cfg, plane, f32_oy, f32_ms in (
         ("2x", model, kw, RaisrConfig(passes=PASSES, dtype="auto"),
          cheap_upscale(y[0].to(torch.float32), 2 * LR_H, 2 * LR_W, 8), c2["oy"], c2["ms_step"]),
@@ -895,7 +914,8 @@ def run_bf16(y, u, v, dev, card: str, model, kw: dict, c2: dict, c15: dict,
             "raisr_tpu_torch/csrc/full_kernel.cu",
             "raisr_tpu/ops/pallas/full_kernel.py:" + ("952" if single else "82"),
             launches, errs, ms16, ms_plain, pass_bound(plane, banks[0], op_type="bfloat16")))
-    return rows
+        served[tag] = oy
+    return rows, served
 
 
 def run_25x(y, dev, card: str, kw: dict) -> None:
@@ -1543,8 +1563,8 @@ def run_train(dev, card: str, tmp: str, kw: dict) -> dict:
     versions; the times; the trained 2x bank served from its folder (4 frames
     through process_batch_device) against the plain passes and the taps
     engine, and the bf16 and int8 tiers beside float32 on it. Returns the
-    kernel's `kernels` row, and the errors of the other kernels by the name
-    of their rows."""
+    kernel's `kernels` row, the errors of the other kernels by the name of
+    their rows, and the HR frames."""
     import numpy as np
     import torch
 
@@ -1773,7 +1793,285 @@ def run_train(dev, card: str, tmp: str, kw: dict) -> dict:
     return kernel_row("normal_eq", "raisr_tpu_torch/csrc/normal_eq.cu",
                       "raisr_tpu/train/trainer.py:119 (_accumulate_chunked, XLA's one-hot "
                       "contraction; no Pallas kernel)", launches + launches15, errs, ms,
-                      ms_plain, bnd, ms_onehot), held
+                      ms_plain, bnd, ms_onehot), held, hrs
+
+
+def enqueue_ms(fn, iters: int, warmup: int = 1) -> tuple[float, float]:
+    """One call's device time (cuda_ms's event pair) and the host's time to
+    enqueue it (the same loop on the host's clock, before waiting): where
+    the second is the larger, the host sets the pace."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, host
+
+
+def run_shard(dev, card: str, engine, y, want: dict, kw: dict, edges, filters, c15: dict,
+              hrs) -> tuple[dict, dict]:
+    """Phase 21: the multi-device paths over a mesh that names the one card
+    several times (make_mesh(devices=[dev] * n)); each shard's work runs in
+    turn on the card, with real halo copies. Stripe launches of the fused
+    pass (the first and an interior stripe of pass 1 at 2x, one 1.5x stripe,
+    from the striped resize) against the plain version; the sharded runs,
+    each with the launch counts set to 0 just before it and read just
+    after, against the unsharded outputs of the earlier phases bit for bit;
+    the engine's refusal of a 2-device spec on one card; train_step_sharded
+    over data 4 on phase 20's 8 frames, plain and CT-weighted, against
+    one-device training; the times of the sharded steps beside the
+    unsharded one, and a fixed batch at mesh sizes 1, 2 and 4. Returns this
+    phase's launches and hold errors by the name of their `kernels` rows."""
+    import numpy as np
+    import torch
+
+    from raisr_tpu_torch import RaisrConfig, RaisrEngine, RaisrError
+    from raisr_tpu_torch.ops.cuda import filter_kernel as flk
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+    from raisr_tpu_torch.parallel import make_mesh
+    from raisr_tpu_torch.parallel import sharding as sh
+    from raisr_tpu_torch.train import trainer as tr
+
+    yf = y.to(torch.float32)
+    out_h, out_w = 2 * LR_H, 2 * LR_W
+    launches: dict[str, int] = {}
+    errs: dict[str, list] = {"full_kernel": [], "full_kernel_single": []}
+
+    def grid(data: int, rows: int):
+        return sh.Mesh(np.array([dev] * (data * rows), dtype=object).reshape(data, rows),
+                       ("data", "rows"))
+
+    # -- stripe launches against the plain version -----------------------------
+    for tag, row, (oh, ow), n, bank, bkw, pt in (
+            ("2x", "full_kernel", (out_h, out_w), 4, filters[0], dict(kw, **edges[0]), 4),
+            ("1.5x", "full_kernel_single", tuple(c15["cheap"].shape), 2, c15["filters"],
+             c15["kw"], 1)):
+        lr_halo, hs = sh._lr_halo(LR_H, oh), oh // n
+        ext = sh._exchange_halo(sh._scatter(yf[0], [dev] * n), lr_halo)
+        for idx in ((0, 1) if tag == "2x" else (1,)):
+            cheap = sh._upscale_stripe(ext[idx], lr_halo, hs, sh.HR_HALO, ow, oh, 8, LR_H, idx,
+                                       LR_H // n)
+            pkw = dict(bkw, blending=2, row0=idx * hs - sh.HR_HALO, zone_h=oh, pixel_types=pt)
+            errs[row].append(hold(
+                f"21 {tag} stripe", f"stripe {idx} of {n}, pass 1, {tuple(cheap.shape)} (row0 "
+                f"{pkw['row0']}, zone_h {oh})", fk.raisr_pass_full(cheap, bank, **pkw),
+                fk.raisr_pass_full_reference(cheap, bank, **pkw)))
+
+    # -- the sharded runs against the unsharded outputs --------------------------
+    def drive(label, fn, expect, row, key, n_launch):
+        torch.cuda.synchronize()
+        zero(fk.LAUNCHES)
+        fk.EPILOGUE_LAUNCHES = 0
+        got = fn()
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in fk.LAUNCHES.items() if c}
+        same = got.device == dev and torch.equal(got, expect.to(torch.float32))
+        print(f"phase 21 {label}: Y {tuple(got.shape)} on {got.device}, equal to the unsharded "
+              f"output bit for bit: {same}; fused passes {counts}, launch B "
+              f"{fk.EPILOGUE_LAUNCHES} (expected {n_launch} of {key})")
+        if not same or counts != {key: n_launch} or fk.EPILOGUE_LAUNCHES != n_launch:
+            raise SystemExit(f"phase 21 failed: {label}")
+        launches[row] = launches.get(row, 0) + n_launch
+        launches["full_kernel_epilogue"] = launches.get("full_kernel_epilogue", 0) + n_launch
+
+    def striped(eng, passes, mode, oh, ow, mesh):
+        return lambda: sh.process_batch_2d(yf, eng._banks, eng._statics, passes, mode, oh, ow,
+                                           mesh)
+
+    s, f32 = engine._statics, ("float32", 4)
+    mesh2d = make_mesh(4, devices=[dev] * 4)
+    print(f"phase 21 meshes on {card}: {mesh2d}")
+    drive("process_batch_2d, data=2 rows=2, phase 2's 4 frames, 2 passes",
+          striped(engine, PASSES, 1, out_h, out_w, mesh2d), want["2"], "full_kernel", f32,
+          N_FRAMES * 2 * PASSES)
+    drive("process_batch_dp, data=4, phase 2's 4 frames",
+          lambda: sh.process_batch_dp(yf, engine._banks, s, PASSES, 1, out_h, out_w,
+                                      grid(4, 1)), want["2"], "full_kernel", f32, 4 * PASSES)
+    drive("process_plane_row_sharded, rows=4, phase 2's frame 0",
+          lambda: sh.process_plane_row_sharded(yf[0], engine._banks, s, PASSES, 1, out_h,
+                                               out_w, grid(1, 4)), want["2"][0],
+          "full_kernel", f32, 4 * PASSES)
+    e15 = RaisrEngine(RaisrConfig(ratio=1.5, passes=PASSES_15X), c15["model"], device=dev)
+    drive("rows=2, 1.5x, 4 frames", striped(e15, PASSES_15X, 1, *c15["cheap"].shape, grid(1, 2)),
+          want["7"], "full_kernel_single", ("float32", 1), N_FRAMES * 2 * PASSES_15X)
+    for phase, label, cfg, row, key in (
+            ("19", "mode 2", RaisrConfig(passes=PASSES, mode=2), "full_kernel_f32_8bit_mode2",
+             f32),
+            ("11", "auto (bf16)", RaisrConfig(passes=PASSES, dtype="auto"), "full_kernel_bf16",
+             ("bfloat16", 4)),
+            ("13", "int8", RaisrConfig(passes=PASSES, dtype="int8"), "full_kernel_int8_8bit",
+             ("int8", 4))):
+        eng = RaisrEngine(cfg, engine.model, device=dev)
+        drive(f"rows=2, {label}, 4 frames (phase {phase}'s)",
+              striped(eng, PASSES, cfg.two_pass_mode, out_h, out_w, grid(1, 2)), want[phase],
+              row, key, N_FRAMES * 2 * PASSES)
+
+    # -- the engine on one card ------------------------------------------------
+    n_cards = torch.cuda.device_count()
+    if n_cards == 1:
+        try:
+            RaisrEngine(RaisrConfig(passes=PASSES), engine.model, shard="data=2", device=dev)
+            refusal = None
+        except RaisrError as e:
+            refusal = str(e)
+        print(f"phase 21 RaisrEngine(shard='data=2') on one visible card: {refusal}")
+        if not refusal or "needs 2 devices but only 1 are visible" not in refusal:
+            raise SystemExit("phase 21 failed: the engine took a 2-device spec on one card")
+    else:
+        eng = RaisrEngine(RaisrConfig(passes=PASSES), engine.model, shard="data=2", device=dev)
+        print(f"phase 21 RaisrEngine(shard='data=2') over {n_cards} visible cards: {eng._mesh}")
+
+    # -- train_step_sharded over data 4 -------------------------------------------
+    cfg_t = tr.TrainConfig()
+    pairs = [tr.degrade(x, 2.0, 8) for x in hrs]
+    lr_b = torch.tensor(np.stack([p[0] for p in pairs]).astype(np.float32), device=dev)
+    hr_b = torch.tensor(np.stack([p[1] for p in pairs]).astype(np.float32), device=dev)
+    tmesh = make_mesh(4, ("data",), devices=[dev] * 4)
+    plain_bank = None
+    for tag in ("plain", "CT-weighted (blending 2, the plain step's bank)"):
+        ct = plain_bank
+        torch.cuda.synchronize()
+        ne.LAUNCHES = flk.LAUNCHES = 0
+        bank = tr.train_step_sharded(lr_b, hr_b, cfg_t, tmesh, ct_filters=ct)
+        torch.cuda.synchronize()
+        n_ne, n_af = ne.LAUNCHES, flk.LAUNCHES
+        same = torch.equal(bank, tr.train_step_sharded(lr_b, hr_b, cfg_t, tmesh, ct_filters=ct))
+        if ct is None:
+            one = torch.tensor(tr.train_filterbank(pairs, cfg_t, dev).filters, device=dev)
+        else:
+            q, v = tr.init_accumulators(cfg_t, dev)
+            for lr_i, hr_i in zip(lr_b, hr_b):
+                tr.accumulate_pair_ct(q, v, tr._cheap(lr_i, hr_i, cfg_t), hr_i, ct, cfg_t, 2)
+            one = tr.solve_filters(q, v, cfg_t)
+        close = torch.allclose(bank, one, rtol=2e-3, atol=2e-4)
+        want_af = 0 if ct is None else len(pairs)
+        print(f"phase 21 train_step_sharded {tag}, data=4 over phase 20's {len(pairs)} frames: "
+              f"normal_eq {n_ne}, apply_filters {n_af} (expected {len(pairs)}, {want_af}); two "
+              f"runs bit-identical: {same}; vs one device max diff "
+              f"{float((bank - one).abs().max()):.3e} (rtol 2e-3, atol 2e-4): {close}")
+        if not (same and close and n_ne == len(pairs) and n_af == want_af):
+            raise SystemExit(f"phase 21 failed: train_step_sharded {tag}")
+        launches["normal_eq"] = launches.get("normal_eq", 0) + n_ne
+        launches["filter_kernel"] = launches.get("filter_kernel", 0) + n_af
+        plain_bank = bank
+
+    # -- times ---------------------------------------------------------------------
+    def step(mesh):
+        return striped(engine, PASSES, 1, out_h, out_w, mesh)
+
+    def dp(n):
+        return lambda: sh.process_batch_dp(yf, engine._banks, s, PASSES, 1, out_h, out_w,
+                                           grid(n, 1))
+
+    timed = [("unsharded process_batch_y", lambda: engine.process_batch_y(yf)),
+             ("2-D data=2 rows=2", step(mesh2d)), ("DP data=4", dp(4)),
+             ("rows=4", step(grid(1, 4)))]
+    timed += [(f"rows={n}", step(grid(1, n))) for n in (1, 2)] + [
+        (f"DP data={n}", dp(n)) for n in (1, 2)]
+    parts = []
+    for label, fn in timed:
+        dev_ms, host = enqueue_ms(fn, 5)
+        parts.append(f"{label} {dev_ms:.3f} ms (host enqueue {host:.3f})")
+    pred = ", ".join(f"rows={n} {100 * 2 * sh.HR_HALO * n / out_h:.2f}%" for n in (1, 2, 4))
+    print(f"phase 21 times on {card}, {N_FRAMES} frames 1080p -> 4K, 2 passes, Y only, one "
+          f"card: {'; '.join(parts)}. Halo rows over stripe rows, the predicted extra work of "
+          f"the stripes over the whole frame: {pred}")
+    return launches, errs
+
+
+def sync_all(devs) -> None:
+    import torch
+
+    for d in dict.fromkeys(devs):
+        torch.cuda.synchronize(d)
+
+
+def run_cards(card: str, devs) -> None:
+    """--cards N: the multi-device paths over N real cards (devs), beside
+    the same mesh shapes over the first card alone. RaisrEngine(shard=...)
+    for data=N, rows=N and data=N/2,rows=2 on phase 2's 4 frames against the
+    unsharded engine, bit for bit, with the launch counts; the device time
+    (CUDA events on the engine's card, which the gathered output waits for)
+    and the host's enqueue time of each, and of the one-card mesh; one 4K
+    float32 plane copied between two cards; train_step_sharded over data=N
+    on 8 pairs against the one-card mesh, bit for bit."""
+    import numpy as np
+    import torch
+
+    from raisr_tpu_torch import RaisrConfig, RaisrEngine
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+    from raisr_tpu_torch.parallel import sharding as sh
+    from raisr_tpu_torch.train import trainer as tr
+
+    n, dev = len(devs), devs[0]
+    with tempfile.TemporaryDirectory() as folder:
+        model = make_bank(folder)
+    cfg = RaisrConfig(passes=PASSES)
+    yf = make_planes(N_FRAMES, LR_H, LR_W, 1, dev).to(torch.float32)
+    base = RaisrEngine(cfg, model, device=dev)
+    want = base.process_batch_y(yf)
+    parts = [f"unsharded {enqueue_ms(lambda: base.process_batch_y(yf), 5)[0]:.3f} ms"]
+    for spec, shape in ((f"data={n}", (n, 1)), (f"rows={n}", (1, n)),
+                        (f"data={n // 2},rows=2", (n // 2, 2))):
+        eng = RaisrEngine(cfg, model, shard=spec, device=dev)
+        sync_all(devs)
+        zero(fk.LAUNCHES)
+        got = eng.process_batch_y(yf)
+        sync_all(devs)
+        per_frame = 1 if shape[1] == 1 else shape[1] * N_FRAMES // shape[0]
+        expect = shape[0] * per_frame * PASSES
+        same = torch.equal(got, want) and got.device == dev
+        print(f"phase 21 cards {spec} over {eng._mesh}: equal to the unsharded engine bit for "
+              f"bit: {same}; fused passes {fk.LAUNCHES[('float32', 4)]} (expected {expect})")
+        if not same or fk.LAUNCHES[("float32", 4)] != expect:
+            raise SystemExit(f"phase 21 failed: {spec} over {n} cards")
+        one = sh.Mesh(np.array([dev] * n, dtype=object).reshape(shape), ("data", "rows"))
+
+        def on_one():
+            if shape[1] == 1:
+                return sh.process_batch_dp(yf, eng._banks, eng._statics, PASSES, 1,
+                                           2 * LR_H, 2 * LR_W, one)
+            return sh.process_batch_2d(yf, eng._banks, eng._statics, PASSES, 1,
+                                       2 * LR_H, 2 * LR_W, one)
+
+        if not torch.equal(on_one(), want):
+            raise SystemExit(f"phase 21 failed: {spec} over one card")
+        cards_ms, cards_host = enqueue_ms(lambda: eng.process_batch_y(yf), 5)
+        one_ms, one_host = enqueue_ms(on_one, 5)
+        parts.append(f"{spec} {cards_ms:.3f} ms over {n} cards (host enqueue {cards_host:.3f}), "
+                     f"{one_ms:.3f} over one ({one_host:.3f})")
+    plane = torch.empty((2 * LR_H, 2 * LR_W), device=devs[1])
+    copy_ms = cuda_ms(lambda: plane.to(dev), 20, 2)
+    print(f"phase 21 cards times on {card}, {N_FRAMES} frames 1080p -> 4K, 2 passes, Y only: "
+          f"{'; '.join(parts)}; a 4K float32 plane {devs[1]} -> {dev} {copy_ms:.4f} ms "
+          f"({plane.numel() * 4 / copy_ms / 1e6:.1f} GB/s)")
+
+    hrs = make_training_frames(TRAIN_FRAMES, LR_H, LR_W, 20, dev)
+    pairs = [tr.degrade(x, 2.0, 8) for x in hrs]
+    lr_b = torch.tensor(np.stack([p[0] for p in pairs]).astype(np.float32), device=dev)
+    hr_b = torch.tensor(np.stack([p[1] for p in pairs]).astype(np.float32), device=dev)
+    tcfg = tr.TrainConfig()
+    ne.LAUNCHES = 0
+    cards_bank = tr.train_step_sharded(lr_b, hr_b, tcfg, sh.make_mesh(n, ("data",), devs))
+    sync_all(devs)
+    launches = ne.LAUNCHES
+    one_bank = tr.train_step_sharded(lr_b, hr_b, tcfg, sh.make_mesh(n, ("data",), [dev] * n))
+    same = torch.equal(cards_bank, one_bank) and cards_bank.device == dev
+    print(f"phase 21 cards train_step_sharded over data={n}, {len(pairs)} pairs: normal_eq "
+          f"{launches}, equal to the one-card mesh's bank bit for bit: {same}")
+    if not same or launches != len(pairs):
+        raise SystemExit(f"phase 21 failed: train_step_sharded over {n} cards")
 
 
 def graph_step(engine, y, u, v):
@@ -1799,6 +2097,9 @@ def main() -> int:
     parser.add_argument("--profile", metavar="DIR",
                         help="also trace 10 steps of each path and write "
                              "DIR/step_trace.json (2x) and DIR/step15_trace.json (1.5x)")
+    parser.add_argument("--cards", type=int, default=0, metavar="N",
+                        help="instead of phases 1-21: the multi-device paths over N "
+                             "visible cards (an even N >= 2) beside one card")
     args = parser.parse_args()
 
     import torch
@@ -1828,6 +2129,13 @@ def main() -> int:
     lib_path = _build.build(verbose=True)
     _build.load_library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+
+    if args.cards:
+        if args.cards < 2 or args.cards % 2 or torch.cuda.device_count() < args.cards:
+            raise SystemExit(f"--cards {args.cards}: needs an even count >= 2 of visible cards "
+                             f"({torch.cuda.device_count()} visible)")
+        run_cards(card, [torch.device("cuda", i) for i in range(args.cards)])
+        return finish(card, [])
 
     with tempfile.TemporaryDirectory() as folder:
         model = make_bank(folder)
@@ -1952,11 +2260,12 @@ def main() -> int:
                        "raisr_tpu/ops/pallas/full_kernel.py:82", launches, errs,
                        ms_kernel, ms_plain, pass_bound(cheap, filters[0])), single]
     rows += run_filter(y, dev, card, model, kw, c15, b_launches)
-    rows += run_bf16(y, u, v, dev, card, model, kw, dict(oy=oy, ms_step=ms_step), c15,
-                     args.profile)
+    bf16_rows, bf16_y = run_bf16(y, u, v, dev, card, model, kw, dict(oy=oy, ms_step=ms_step),
+                                 c15, args.profile)
+    rows += bf16_rows
     run_25x(y, dev, card, kw)
-    row, _, _ = run_tier(13, "int8 2x 2-pass", RaisrConfig(passes=PASSES, dtype="int8"), model,
-                         (y, u, v), dev, card, base=oy)
+    row, int8_y, _ = run_tier(13, "int8 2x 2-pass", RaisrConfig(passes=PASSES, dtype="int8"),
+                              model, (y, u, v), dev, card, base=oy)
     rows.append(row)
     rows += run_hibit(dev, card)
     rows.append(run_probe(dev, card))
@@ -1965,15 +2274,28 @@ def main() -> int:
         rows.append(row)
         run_cli(card, tmp, c16)
     run_modes(y, u, v, dev, card, model, kw)
-    row, _, _ = run_tier(19, "8-bit 2x 2-pass mode 2", RaisrConfig(passes=PASSES, mode=2),
-                         model, (y, u, v), dev, card)
+    row, mode2_y, _ = run_tier(19, "8-bit 2x 2-pass mode 2", RaisrConfig(passes=PASSES, mode=2),
+                               model, (y, u, v), dev, card)
     rows.append(row)
     with tempfile.TemporaryDirectory() as tmp:
-        row, held = run_train(dev, card, tmp, kw)
-    # the training path's holds of earlier rows' kernels count in those rows
-    for r in rows:
-        r["max_abs_err"] = max([r["max_abs_err"], *held.get(r["name"], [])])
+        row, held, hrs = run_train(dev, card, tmp, kw)
     rows.append(row)
+    shard_launches, shard_errs = run_shard(
+        dev, card, engine, y, {"2": oy, "7": c15["oy"], "11": bf16_y["2x"], "13": int8_y,
+                               "19": mode2_y}, kw, edges, filters, c15, hrs)
+    # the training and sharding paths' holds of earlier rows' kernels count in
+    # those rows, and the sharding path's launches with the main path's
+    for r in rows:
+        r["max_abs_err"] = max([r["max_abs_err"], *held.get(r["name"], []),
+                                *shard_errs.get(r["name"], [])])
+        r["launches"] += shard_launches.get(r["name"], 0)
+    return finish(card, rows)
+
+
+def finish(card: str, rows: list) -> int:
+    """The last three lines: the `kernels` line, the card, the result."""
+    import torch
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

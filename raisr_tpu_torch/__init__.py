@@ -13,6 +13,10 @@ Public API (mirrors the reference's 5-function C API, Library/Raisr.h:14-33):
 File-to-file serving lives beside it, as in raisr_tpu: `stream.StreamProcessor`
 (pipelined dispatch), `video` (Y4M / raw YUV / PNG), `io_native`, and the
 `raisr-torch` command line (`cli.main`, `python -m raisr_tpu_torch.cli`).
+Multi-device serving and training run from one process over a mesh of
+torch devices: `RaisrEngine(shard="data=N[,rows=M]")`, `parallel` (`Mesh`,
+`make_mesh`, the data-parallel, row-striped and 2-D steps) and
+`train.train_step_sharded`.
 """
 
 from raisr_tpu_torch.config import (

@@ -427,9 +427,13 @@ def main(argv=None) -> int:
                            "batched mode; output identical to --batch 1)")
     p_up.add_argument("--size", default=None, help="WxH for raw .yuv input")
     p_up.add_argument("--shard", default=None,
-                      help="multi-device spec: data=N[,rows=M]; any spec "
-                           "over one device is refused until multi-device "
-                           "serving is ported (ROADMAP A13)")
+                      help="multi-device spec: data=N[,rows=M]. data shards "
+                           "frames of each --batch over N devices (the "
+                           "reference's N-streams recipe as one dispatch); "
+                           "rows shards each frame's rows over M devices "
+                           "(single-stream latency; halo copied between "
+                           "devices). The first N*M cards, or N*M entries of "
+                           "the CPU with --device cpu")
     p_up.add_argument(
         "--format", default="420", choices=["420", "422", "444", "nv12", "mono"]
     )
@@ -452,8 +456,7 @@ def main(argv=None) -> int:
     p_bench.add_argument("--height", type=int, default=1080)
     p_bench.add_argument("--frames", type=int, default=20)
     p_bench.add_argument("--shard", default=None,
-                         help="multi-device spec: data=N[,rows=M] (refused, "
-                              "ROADMAP A13)")
+                         help="multi-device spec: data=N[,rows=M]")
     p_bench.add_argument("--latency", action="store_true",
                          help="single-stream latency mode: fenced per-frame "
                               "latency + depth-2 pipelined rate")

@@ -26,6 +26,13 @@ from raisr_tpu_torch.ops.pipeline import (
     process_plane_y_batch,
     process_plane_uv,
 )
+from raisr_tpu_torch.parallel.sharding import (
+    Mesh,
+    process_batch_2d,
+    process_batch_dp,
+    process_plane_row_sharded,
+    stripe_problem,
+)
 
 
 def unpack_planes(t: torch.Tensor) -> torch.Tensor:
@@ -103,7 +110,12 @@ class Frame:
 
 
 def parse_shard_spec(spec: Optional[str]) -> dict:
-    """Parse a "data=N[,rows=M]" shard spec (the `--shard` CLI knob)."""
+    """Parse a "data=N[,rows=M]" shard spec (the `--shard` CLI knob).
+
+    data: frames split over devices (the reference's N-parallel-streams
+    throughput recipe, docs/performance.md:8, as one batch). rows: each
+    frame's rows split over devices, halo copied between them: single-stream
+    latency. Multiplied together they use data*rows devices."""
     out = {"data": 1, "rows": 1}
     if not spec:
         return out
@@ -150,10 +162,20 @@ class RaisrEngine:
         self.cfg = cfg
         self.model = model if model is not None else load_model(cfg.filterfolder, cfg)
         self._shard = shard if isinstance(shard, dict) else parse_shard_spec(shard)
-        if self._shard["data"] * self._shard["rows"] > 1:
-            raise RaisrError(
-                f"shard spec {self._shard} needs several devices; multi-device "
-                "serving is not ported to raisr_tpu_torch yet (ROADMAP A13)."
+        self._mesh = None
+        n_dev = self._shard["data"] * self._shard["rows"]
+        if n_dev > 1:
+            if cfg.resize_mode != "bilinear":
+                # the row-stripe halo resize and the DP stacked path are
+                # built on the bilinear support/weight structure only
+                raise RaisrError(
+                    "sharding supports resize_mode=bilinear "
+                    f"only (got {cfg.resize_mode})."
+                )
+            self._mesh = Mesh(
+                np.array(self._mesh_devices(n_dev), dtype=object).reshape(
+                    self._shard["data"], self._shard["rows"]),
+                ("data", "rows"),
             )
         self._backend = _resolve_backend(cfg, self.device)
         if self.device.type == "cuda" and self._backend == "pallas":
@@ -163,9 +185,37 @@ class RaisrEngine:
         self._out_dtype = torch.uint8 if cfg.bits == 8 else torch.uint16
         # the bin edges travel as floats in self._statics; the banks are
         # prepared for the pass once, here (phase-0 rows, the tier's bank
-        # and its extras)
-        self._filters = pass_banks(self._statics,
-                                   bank_tensors(self.model, self.device)[0])
+        # and its extras), on the engine's device and on each mesh device
+        devices = [self.device] + (self._mesh.distinct() if self._mesh else [])
+        self._banks = {
+            d: pass_banks(self._statics, bank_tensors(self.model, d)[0])
+            for d in dict.fromkeys(devices)
+        }
+        self._filters = self._banks[self.device]
+
+    def _mesh_devices(self, n: int) -> list[torch.device]:
+        """The devices of an n-device mesh, as raisr_tpu takes the first n of
+        jax.devices(): the first n visible cards for a CUDA engine, n entries
+        of the CPU device for a CPU engine (the counterpart of the virtual
+        CPU mesh)."""
+        if self.device.type != "cuda":
+            return [self.device] * n
+        count = torch.cuda.device_count()
+        if n > count:
+            raise RaisrError(
+                f"shard spec {self._shard} needs {n} "
+                f"devices but only {count} are visible."
+            )
+        return [torch.device("cuda", i) for i in range(n)]
+
+    def _check_rows_shardable(self, h: int, out_h: int):
+        rows = self._shard["rows"]
+        problem = stripe_problem(self._statics, self.cfg.passes, self.cfg.two_pass_mode,
+                                 h, out_h, rows)
+        if problem:
+            raise RaisrError(
+                f"rows={rows} cannot stripe input height {h} (output {out_h}): {problem}."
+            )
 
     # -- single-plane entry points (device tensors in/out) -------------------
 
@@ -173,6 +223,12 @@ class RaisrEngine:
         """Process one luma plane; accepts/returns integer-valued tensors."""
         h, w = y.shape
         out_h, out_w = self.cfg.output_size(h, w)
+        if self._mesh is not None and self._shard["rows"] > 1:
+            self._check_rows_shardable(h, out_h)
+            return process_plane_row_sharded(
+                y, self._banks, self._statics, self.cfg.passes,
+                self.cfg.two_pass_mode, out_h, out_w, self._mesh, "rows",
+            )
         return process_plane_y(
             y,
             self._filters,
@@ -213,9 +269,32 @@ class RaisrEngine:
 
         On the fused backend the batch rides ONE kernel launch per pass as a
         guard-banded vertical stack with per-frame zone masks; the output is
-        exactly N x upscale_y."""
+        exactly N x upscale_y.
+
+        With a shard spec (engine shard= / CLI --shard) the batch is spread
+        over the mesh: frames over the data axis (each device runs the
+        guard-banded stack on its own frames) and/or each frame's rows over
+        the rows axis (halo copied between devices). Input and output stay
+        on the engine's device."""
         n, h, w = batch_y.shape
         out_h, out_w = self.cfg.output_size(h, w)
+        if self._mesh is not None:
+            d = self._shard["data"]
+            if n % d:
+                raise RaisrError(
+                    f"batch size {n} must be divisible by "
+                    f"the data shard count {d}."
+                )
+            if self._shard["rows"] > 1:
+                self._check_rows_shardable(h, out_h)
+                return process_batch_2d(
+                    batch_y, self._banks, self._statics, self.cfg.passes,
+                    self.cfg.two_pass_mode, out_h, out_w, self._mesh, "data", "rows",
+                )
+            return process_batch_dp(
+                batch_y, self._banks, self._statics, self.cfg.passes,
+                self.cfg.two_pass_mode, out_h, out_w, self._mesh, "data",
+            )
         return process_plane_y_batch(
             batch_y,
             self._filters,

@@ -157,15 +157,17 @@ def hash_buckets(
 
 def pixel_types(
     h: int, w: int, ratio: int, patch_margin: int, use_pixel_type: bool,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cpu", row0: int = 0,
 ) -> torch.Tensor:
     """Per-pixel phase -> filter variant index (reference: Raisr.cpp:1091-1094:
     pixelType = ((r - margin) % ratio) * ratio + ((c - margin) % ratio)),
-    with a floor modulo for the negative rows and columns."""
+    with a floor modulo for the negative rows and columns. `row0` is the
+    global row of plane row 0 (a row stripe: raisr_tpu's
+    parallel/sharding.py:313-317), so the phases are the whole frame's."""
     if not use_pixel_type:
         return torch.zeros((h, w), dtype=torch.int32, device=device)
     rows = torch.remainder(
-        torch.arange(h, dtype=torch.int32, device=device) - patch_margin, ratio
+        torch.arange(h, dtype=torch.int32, device=device) + row0 - patch_margin, ratio
     )
     cols = torch.remainder(
         torch.arange(w, dtype=torch.int32, device=device) - patch_margin, ratio

@@ -98,6 +98,8 @@ def raisr_pass(
     pass_idx: int = 0,
     frame_h: int = 0,
     frame_pad: int = 0,
+    row0: int = 0,
+    zone_h: int = 0,
 ) -> torch.Tensor:
     """One RAISR pass over an integer-valued float32 plane. Returns the
     integer-valued output plane (float32). The pass's bin edges come from
@@ -105,10 +107,22 @@ def raisr_pass(
 
     frame_h > 0: the plane is a vertical stack of frame_h-row frames
     separated by 2*frame_pad guard rows; zone masks are applied per frame
-    (batched engine mode, see process_plane_y_batch)."""
+    (batched engine mode, see process_plane_y_batch).
+
+    row0 / zone_h > 0: the plane is a row stripe (parallel/sharding.py)
+    whose row 0 is global row `row0` of a zone_h-row frame; zones and pixel
+    phases are the frame's. This is the one place that builds the fused
+    kernel's arguments, for whole frames, stacks and stripes alike. The fused
+    and conv passes take the pixel phase from the plane's own rows, so with
+    phases they take a stripe that starts on a row of phase 0 only."""
     h, w = cheap.shape
     s = statics
     qstr, qcoh = s.bank_edges[pass_idx]
+    if s.use_pixel_type and s.backend != "taps" and row0 % s.ratio_int:
+        raise ValueError(
+            f"the {s.backend} pass takes its pixel phases from the plane's rows: "
+            f"a stripe must start on a multiple of {s.ratio_int}, got row0 {row0}"
+        )
 
     if s.backend == "pallas":
         # whole pass in one fused call: 4-phase for ratio-2 banks, else the
@@ -132,6 +146,8 @@ def raisr_pass(
             exact_edges=s.exact_edges,
             frame_h=frame_h,
             frame_pad=frame_pad,
+            row0=row0,
+            zone_h=zone_h,
             pixel_types=4 if s.use_pixel_type else 1,
             tier=s.tier,
             pbias=bank.pbias,
@@ -157,7 +173,8 @@ def raisr_pass(
                                      s.patch_size, 1, s.patch_margin, 1)
     else:
         ptype = hashing.pixel_types(
-            h, w, s.ratio_int, s.patch_margin, s.use_pixel_type, device=cheap.device
+            h, w, s.ratio_int, s.patch_margin, s.use_pixel_type, device=cheap.device,
+            row0=row0,
         )
         raw = apply_filters_taps(cheap, buckets * s.pixel_types + ptype, bank.filters,
                                  s.patch_size)
@@ -166,7 +183,7 @@ def raisr_pass(
         min_val=s.min_val, max_val=s.max_val, blending=int(s.blending),
         loop_margin=s.loop_margin,
         col_end=processed_col_end(w, s.loop_margin, s.exact_edges),
-        frame_h=frame_h, frame_pad=frame_pad,
+        frame_h=frame_h, frame_pad=frame_pad, row0=row0, zone_h=zone_h,
     )
 
 

@@ -34,8 +34,13 @@ everything on one stream the host's staging and read-back would still
 overlap the device's work, but the copies would run between the steps: on an
 H100 that costs a seventh of the rate at 1080p -> 4K (PERF.md).
 
-On a CPU engine it is the same loop on plain tensors. Multi-device (sharded)
-dispatch is not part of this module yet: the engine refuses every shard spec.
+On a CPU engine it is the same loop on plain tensors. A sharded engine
+(`RaisrEngine(shard=...)`) takes the same dispatches: a group goes through
+`process_batch_device`, whose `process_batch_y` spreads it over the mesh (the
+tail is padded to `batch`, so the data axis divides it); at batch 1 each
+frame goes through the per-plane entry points instead (`_dispatch_sharded`:
+a data axis over 1 cannot divide a batch of one; `upscale_y` cuts the frame
+into row stripes). Staging, copies and events stay on the engine's device.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from raisr_tpu_torch.engine import RaisrEngine, Frame
+from raisr_tpu_torch.engine import RaisrEngine, Frame, pack_planes, unpack_planes
 from raisr_tpu_torch.utils.profiler import Tracer
 
 
@@ -138,10 +143,26 @@ class StreamProcessor:
             host.copy_(t, non_blocking=True)
         return host
 
-    def _dispatch_stack(self, group: list[Frame], pad_to: int) -> _InFlight:
+    def _dispatch_sharded(self, frame: Frame) -> _InFlight:
+        """One frame through a sharded engine at batch 1: the per-plane
+        entry points (`upscale_y` in row stripes) in place of the batched
+        step, packed on the engine's device as `process_batch_device`
+        packs them."""
+        eng = self.engine
+
+        def one(fn, t):
+            if t is None:
+                return None
+            return pack_planes(fn(unpack_planes(t[0])), eng._out_dtype)[None]
+
+        return self._dispatch_stack([frame], 1, lambda ys, us, vs: (
+            one(eng.upscale_y, ys), one(eng.upscale_uv, us), one(eng.upscale_uv, vs)))
+
+    def _dispatch_stack(self, group: list[Frame], pad_to: int, step=None) -> _InFlight:
         """One device-step dispatch over a stack of frames; short tail
         groups are padded by repeating the last frame (one launch shape for
-        the whole clip) and sliced on materialize."""
+        the whole clip) and sliced on materialize. `step` is the engine's
+        `process_batch_device` unless given."""
         n_real = len(group)
         group = group + [group[-1]] * (pad_to - n_real)
         ys = self._stage([f.y for f in group])
@@ -150,7 +171,7 @@ class StreamProcessor:
         main = torch.cuda.current_stream(self.engine.device) if self._cuda else None
         if self._in is not None:
             main.wait_stream(self._in)  # the step starts behind its frames
-        outs = self.engine.process_batch_device(ys, us, vs)
+        outs = (step or self.engine.process_batch_device)(ys, us, vs)
         if self._out is not None:
             self._out.wait_stream(main)  # the copies out start behind the step
         y, u, v = (self._to_host(t) for t in outs)
@@ -162,15 +183,20 @@ class StreamProcessor:
 
     def process(self, frames: Iterable[Frame]) -> Iterator[Frame]:
         queue: collections.deque[_InFlight] = collections.deque()
+        per_frame = self.engine._mesh is not None and self.batch == 1
         group: list[Frame] = []
         try:
             for frame in frames:
-                group.append(frame)
-                if len(group) < self.batch:
-                    continue
-                with self.tracer.stage("dispatch"):
-                    queue.append(self._dispatch_stack(group, self.batch))
-                group = []
+                if per_frame:
+                    with self.tracer.stage("dispatch"):
+                        queue.append(self._dispatch_sharded(frame))
+                else:
+                    group.append(frame)
+                    if len(group) < self.batch:
+                        continue
+                    with self.tracer.stage("dispatch"):
+                        queue.append(self._dispatch_stack(group, self.batch))
+                    group = []
                 while len(queue) > self.depth:
                     with self.tracer.stage("materialize"):
                         yield from self._materialize(queue.popleft())

@@ -4,6 +4,7 @@ from raisr_tpu_torch.train.trainer import (
     solve_filters,
     train_filterbank,
     train_filterbank_ct,
+    train_step_sharded,
 )
 from raisr_tpu_torch.train.export import save_filter_folder
 
@@ -13,5 +14,6 @@ __all__ = [
     "solve_filters",
     "train_filterbank",
     "train_filterbank_ct",
+    "train_step_sharded",
     "save_filter_folder",
 ]

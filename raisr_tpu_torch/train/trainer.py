@@ -1,7 +1,8 @@
 """RAISR filter training: hashed least squares per (bucket, pixel type).
 
-Port of raisr_tpu/train/trainer.py (single device; its train_step_sharded
-waits for multi-device support). Per (bucket, pixelType) the normal equations
+Port of raisr_tpu/train/trainer.py; `train_step_sharded` spreads the pairs
+over a mesh of devices (parallel/sharding.py). Per (bucket, pixelType) the
+normal equations
 
     Q[f] += A^T A,   V[f] += A^T y
 
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from raisr_tpu_torch.config import RaisrConfig
-from raisr_tpu_torch.engine import resolve_device
+from raisr_tpu_torch.engine import resolve_device, unpack_planes
 from raisr_tpu_torch.model.gaussian import gaussian_weights
 from raisr_tpu_torch.model.loader import FilterBank, RaisrModel
 from raisr_tpu_torch.ops import census, hashing
@@ -316,6 +317,50 @@ def train_filterbank_ct(
     for lr, hr in _oriented_pairs(pairs_factory(), cfg, dev):
         accumulate_pair_ct(q, v, _cheap(lr, hr, cfg), hr, f0, cfg, blending)
     return _bank(solve_filters(q, v, cfg), cfg)
+
+
+def train_step_sharded(
+    lr_batch: torch.Tensor,  # [N, h, w], N split over the mesh's `axis`
+    hr_batch: torch.Tensor,  # [N, H, W]
+    cfg: TrainConfig,
+    mesh,
+    axis: str = "data",
+    ct_filters: torch.Tensor | None = None,  # the seed bank -> the CT-blend-aware
+    #   weighted step (accumulate_pair_ct); None = plain least squares
+    blending: int = 2,
+) -> torch.Tensor:
+    """One distributed training step (raisr_tpu/train/trainer.py:382-428):
+    each data shard accumulates its pairs' normal equations on its own
+    device (accumulate_pair, or accumulate_pair_ct with `ct_filters`: the
+    sharded second sweep of train_filterbank_ct), then Q and V are summed
+    onto the first device in mesh order, a fixed order, so the bank is the
+    same bit for bit from run to run, and solved once there. Returns the
+    solved [num_filters, 128] bank on the first device. `mesh` is a
+    parallel.sharding.Mesh; no augmentation, as in raisr_tpu."""
+    devs = list(mesh.grid(axis))
+    n = lr_batch.shape[0]
+    if n % len(devs):
+        raise ValueError(f"{n} training pairs do not divide over {len(devs)} devices")
+    k = n // len(devs)
+    out_h, out_w = hr_batch.shape[1], hr_batch.shape[2]
+    sums = []
+    for i, dev in enumerate(devs):
+        q, v = init_accumulators(cfg, dev)
+        f0 = None if ct_filters is None else ct_filters.to(dev, torch.float32)
+        for j in range(i * k, (i + 1) * k):
+            hr = unpack_planes(hr_batch[j].to(dev))
+            cheap = cheap_upscale(unpack_planes(lr_batch[j].to(dev)), out_h, out_w,
+                                  cfg.bits, mode=cfg.resize_mode)
+            if f0 is None:
+                accumulate_pair(q, v, cheap, hr, cfg)
+            else:
+                accumulate_pair_ct(q, v, cheap, hr, f0, cfg, blending)
+        sums.append((q, v))
+    q, v = sums[0]
+    for qi, vi in sums[1:]:
+        q = q + qi.to(devs[0])
+        v = v + vi.to(devs[0])
+    return solve_filters(q, v, cfg)
 
 
 def _taps_pass(cheap: torch.Tensor, filters: torch.Tensor, statics) -> torch.Tensor:

@@ -295,9 +295,24 @@ class TestOtherCommands:
             assert not (tmp_path / "card").exists()
 
     def test_shard_reaches_the_engines_refusal(self, assets, tmp_path, capsys):
+        """--shard is served (on the CPU: a mesh of CPU entries) and leaves
+        the bytes alone, frame by frame (batch 1) and in row stripes in
+        groups (batch 2, the tail of 1 padded); a spec the clip cannot take
+        is refused."""
         folder, clip, _ = assets
-        assert _upscale(clip, tmp_path / "o.y4m", folder, "--shard", "data=2") == 1
-        assert "A13" in capsys.readouterr().err
+        base = tmp_path / "base.y4m"
+        assert _upscale(clip, base, folder, "--passes", "2") == 0
+        for i, extra in enumerate([("--shard", "data=2"),
+                                   ("--shard", "data=2,rows=2", "--batch", "2")]):
+            dst = tmp_path / f"o{i}.y4m"
+            assert _upscale(clip, dst, folder, "--passes", "2", *extra) == 0, extra
+            assert dst.read_bytes() == base.read_bytes(), extra
+        capsys.readouterr()
+        # 24 LR rows in 4 stripes of 6: the pass at HR runs, but pass 2
+        # at LR (mode 2) needs a halo of 8 rows
+        assert _upscale(clip, tmp_path / "bad.y4m", folder, "--passes", "2", "--mode", "2",
+                        "--shard", "rows=4") == 1
+        assert "stripe" in capsys.readouterr().err
 
     def test_default_device_is_the_card(self, assets, tmp_path, capsys):
         """No --device means cuda: without a card the CLI fails with a

@@ -928,3 +928,81 @@ def test_train_filterbank_card_equals_cpu():
     assert ne.LAUNCHES == before + 2
     cpu = tr.train_filterbank(pairs, cfg, device="cpu")
     np.testing.assert_allclose(card.filters, cpu.filters, rtol=2e-3, atol=2e-4)
+
+
+# -- multi-device paths over a mesh that names the one card four times -----
+
+
+def test_sharded_2d_on_the_card_equals_unsharded_and_plain():
+    """process_batch_2d over [cuda] * 4 (data 2 x rows 2): 4 frames x 2
+    stripes x 2 passes fused launches, the output equal to the unsharded
+    card step and to the plain version's sharded run on the CPU; then
+    train_step_sharded over data 4 against one-device training."""
+    from raisr_tpu_torch.parallel import make_mesh
+    from raisr_tpu_torch.parallel import sharding as sh
+    from raisr_tpu_torch.ops.cuda import normal_eq as ne
+    from raisr_tpu_torch.train import trainer as tr
+
+    dev = require_cuda()
+    model = _model()
+    batch = torch.tensor(smooth_frames(4, 64, 96, seed=70).astype(np.float32), device=dev)
+    eng = RaisrEngine(RaisrConfig(passes=2), model, device=dev)
+    cpu = RaisrEngine(RaisrConfig(passes=2, backend="pallas"), model, device="cpu")
+    mesh = make_mesh(4, devices=[dev] * 4)
+    _zero(fk.LAUNCHES)
+    got = sh.process_batch_2d(batch, eng._banks, eng._statics, 2, 1, 128, 192, mesh)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[("float32", 4)] == 4 * 2 * 2
+    assert got.device == dev and torch.equal(got, eng.process_batch_y(batch))
+    plain = sh.process_batch_2d(batch.cpu(), cpu._banks, cpu._statics, 2, 1, 128, 192,
+                                make_mesh(4, devices=["cpu"] * 4))
+    assert torch.equal(got.cpu(), plain), int((got.cpu() != plain).sum())
+
+    pairs = []
+    for seed in range(4):
+        rng = np.random.default_rng(80 + seed)
+        hr = np.clip(smooth(64, 80, seed=80 + seed) + rng.integers(-2, 3, (64, 80)), 0, 255)
+        pairs.append(tr.degrade(hr, 2.0, 8))
+    lr_b = torch.tensor(np.stack([p[0] for p in pairs]).astype(np.float32), device=dev)
+    hr_b = torch.tensor(np.stack([p[1] for p in pairs]).astype(np.float32), device=dev)
+    cfg = tr.TrainConfig(lam=0.05)
+    before = ne.LAUNCHES
+    bank = tr.train_step_sharded(lr_b, hr_b, cfg, make_mesh(4, ("data",), devices=[dev] * 4))
+    assert ne.LAUNCHES == before + 4
+    assert torch.equal(bank, tr.train_step_sharded(
+        lr_b, hr_b, cfg, make_mesh(4, ("data",), devices=[dev] * 4)))
+    one = tr.train_filterbank(pairs, cfg, device=dev)
+    np.testing.assert_allclose(bank.cpu().numpy(), one.filters, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,bits,ratio", [
+    ("float32", 8, 2.0), ("auto", 8, 2.0), ("bfloat16", 10, 2.0), ("int8", 8, 2.0),
+    ("float32", 8, 1.5), ("bfloat16", 10, 1.5)])
+def test_stripe_launch_on_the_card(dtype, bits, ratio):
+    """Rows over [cuda] * 4 at each tier equal the unsharded card run, and an
+    interior stripe's launch (row0 = its first row with halo, zone_h the
+    frame's height) equals the plain version bit for bit."""
+    from raisr_tpu_torch.ops.resize import cheap_upscale
+    from raisr_tpu_torch.parallel import make_mesh
+    from raisr_tpu_torch.parallel import sharding as sh
+
+    dev = require_cuda()
+    pt = 4 if ratio == 2.0 else 1
+    cfg = RaisrConfig(passes=1, dtype=dtype, bits=bits, ratio=ratio)
+    eng = RaisrEngine(cfg, _model(1, seed=9, pixel_types=pt), device=dev)
+    lr = torch.tensor(smooth(64, 96, bits, seed=5), device=dev)
+    out_h, out_w = cfg.output_size(64, 96)
+    mesh = make_mesh(4, ("rows",), devices=[dev] * 4)
+    _zero(fk.LAUNCHES)
+    got = sh.process_plane_row_sharded(lr, eng._banks, eng._statics, 1, 1, out_h, out_w, mesh)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[(eng._statics.tier, pt)] == 4
+    assert torch.equal(got, eng.upscale_y(lr))
+    hs = out_h // 4
+    ext = cheap_upscale(lr, out_h, out_w, bits)[hs - sh.HR_HALO: 2 * hs + sh.HR_HALO].contiguous()
+    b = eng._filters[0]
+    kw = dict(_kw(2, bits), row0=hs - sh.HR_HALO, zone_h=out_h, pixel_types=pt,
+              tier=eng._statics.tier, pbias=b.pbias, inv_scale=b.inv_scale)
+    launch = fk.raisr_pass_full(ext, b.filters, **kw)
+    assert torch.equal(launch, fk.raisr_pass_full_reference(ext, b.filters, **kw))
+    assert torch.equal(launch[sh.HR_HALO: sh.HR_HALO + hs], got[hs: 2 * hs])

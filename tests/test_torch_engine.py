@@ -121,8 +121,11 @@ def test_backend_resolution_and_refusals(models):
     # xla is the dense-conv formulation on any device (tests/test_torch_conv_backend.py)
     assert _resolve_backend(RaisrConfig(backend="xla"), cpu) == "conv"
     assert RaisrEngine(RaisrConfig(backend="xla"), tm, device="cpu")._statics.backend == "conv"
-    with pytest.raises(RaisrError, match="multi-device"):
-        RaisrEngine(RaisrConfig(), tm, shard="data=2", device="cpu")
+    # a shard spec builds a mesh over the engine's device (two CPU entries
+    # here; tests/test_torch_sharding.py holds what it serves)
+    sharded = RaisrEngine(RaisrConfig(), tm, shard="data=2", device="cpu")
+    assert sharded._mesh.shape == {"data": 2, "rows": 1}
+    assert list(sharded._mesh.devices.reshape(-1)) == [cpu, cpu]
     # every tier is served, at the tier raisr_tpu's pass_statics gives: bf16
     # at 8 bits (auto resolves to it), pcenter at 10 bits (its banks carry
     # their bias) and int8 (int16 banks, 1/scale)

@@ -193,7 +193,7 @@ class TestEngineWiring:
             RaisrConfig(resize_mode="bicubic")
 
     def test_shard_plus_nonbilinear_rejected(self, models):
-        with pytest.raises(RaisrError):
+        with pytest.raises(RaisrError, match="resize_mode=bilinear only"):
             RaisrEngine(RaisrConfig(resize_mode="cubic"), models[1], shard="data=2",
                         device="cpu")
 
