@@ -119,6 +119,24 @@ then the multi-device paths (run_shard), over meshes that name the card 2 or
      CT-weighted, against one-device training and itself; the sharded
      steps' device and host-enqueue times beside the unsharded step, at mesh
      sizes 1, 2 and 4.
+then the C ABI (run_capi):
+ 22. builds build/capi_torch/libraisr_tpu.so (native/capi.cpp) and the C
+     tools capi_smoke and capi_y4m from the checkout, and loads the library
+     here with ctypes: RTPU_SetDevice(0), RTPU_InitEx at 2x, 8 bits, 2
+     passes for tiers 0, 1 and 2 on a folder of phase 16's bank (seed 16),
+     RTPU_SetRes and RTPU_Process over 4 frames of 1080p YUV420 in strided
+     planes (rows 64 bytes longer than their samples, in and out), every
+     output equal to engine.process at the tier bit for bit and nothing
+     written past a row, the tier's fused launches exactly frames x passes;
+     both blendings (the second's engine built once); one 10-bit 2x float32 frame and one 1.5x
+     frame; RTPU_Process from a second host thread against the main
+     thread's bytes; capi_y4m on a Y4M of 8 seeded 1080p frames against
+     `raisr-torch upscale` of the same clip and folder, byte for byte, and
+     capi_smoke; the error codes of a card index out of range, a missing
+     folder and Process after Deinit; Init's time, ms per RTPU_Process
+     beside engine.process and the batched step's per-frame share, and
+     capi_y4m's frames/s beside the CLI's, on the host's clock. Its
+     launches and errors are added to the rows of the kernels it ran.
 With --cards N it runs none of these phases, but the engine's data=N, rows=N
 and data=N/2,rows=2 over N real cards against the unsharded engine and the
 one-card mesh, their times, a card-to-card copy, and train_step_sharded
@@ -173,6 +191,10 @@ TRAIN_FRAMES = 8
 ONEHOT_CHUNK = 2048
 NORMAL_EQ_MACS = 121 * 122 // 2 + 121
 NORMAL_EQ_MAX_REL_ERR = 1e-5
+# phase 22: bytes each strided row holds past its samples (in and out), and
+# the value the output planes are filled with beforehand
+CAPI_ROW_PAD = 64
+CAPI_SENTINEL = 0xAB
 
 
 def card_line() -> str:
@@ -1989,6 +2011,277 @@ def run_shard(dev, card: str, engine, y, want: dict, kw: dict, edges, filters, c
     return launches, errs
 
 
+class CFrame:
+    """One frame in the caller's strided planes, as a C host hands them to
+    RTPU_Process: each row `CAPI_ROW_PAD` bytes past its samples, and the
+    output planes filled with a sentinel that no write past a row's width
+    may touch."""
+
+    def __init__(self, frame, out_sizes):
+        import numpy as np
+
+        def padded(shape, dtype, fill):
+            return np.full((shape[0], shape[1] + CAPI_ROW_PAD // np.dtype(dtype).itemsize),
+                           fill, dtype)
+
+        self.frame = frame
+        self.src = [frame.y, frame.u, frame.v]
+        self.inp = [padded(p.shape, p.dtype, 0) for p in self.src]
+        for buf, p in zip(self.inp, self.src):
+            buf[:, :p.shape[1]] = p
+        self.out_sizes = out_sizes
+        self.out = [padded(s, frame.y.dtype, CAPI_SENTINEL) for s in out_sizes]
+
+    def planes(self):
+        """The six RTPUPlane pointers of RTPU_SetRes and RTPU_Process."""
+        import ctypes
+
+        from raisr_tpu_torch.native.build_capi import RTPUPlane
+
+        shapes = [p.shape for p in self.src] + list(self.out_sizes)
+        return [ctypes.byref(RTPUPlane(b.ctypes.data, s[1], s[0], b.strides[0]))
+                for b, s in zip(self.inp + self.out, shapes)]
+
+    def got(self):
+        """The output planes, or None if a byte past a row's width changed."""
+        if any((b[:, s[1]:] != CAPI_SENTINEL).any() for b, s in zip(self.out, self.out_sizes)):
+            return None
+        return [b[:, :s[1]] for b, s in zip(self.out, self.out_sizes)]
+
+
+def frame_err(got, want) -> float:
+    """Largest absolute difference of a C ABI output to engine.process's
+    frame, over Y, U and V; inf when a write past a row's width was seen."""
+    import numpy as np
+
+    if got is None:
+        return float("inf")
+    return max(float(np.abs(g.astype(np.int64) - w.astype(np.int64)).max())
+               for g, w in zip(got, (want.y, want.u, want.v)))
+
+
+def run_capi(dev, card: str, tmp: str, ms_step: float) -> tuple[dict, dict]:
+    """Phase 22: the C ABI (include/raisr_tpu.h) over the port. Builds
+    build/capi_torch/libraisr_tpu.so, capi_smoke and capi_y4m from the
+    checkout and loads the library into this interpreter with ctypes, so
+    the bridge runs here and the launch counts count. RTPU_SetDevice(0),
+    then RTPU_InitEx at 2x, 8 bits, 2 passes for tiers 0, 1 and 2 on a
+    folder of phase 16's bank (seed 16), RTPU_SetRes and RTPU_Process over 4 frames of 1080p
+    YUV420 in strided planes (each row 64 bytes past its samples, in and
+    out): every output equal to engine.process of the frame at the tier,
+    bit for bit, the tier's fused launches exactly frames x passes; both
+    blendings (the second blending's engine built once); one 10-bit 2x
+    float32 frame and one 1.5x frame (the seed-15 single-phase bank);
+    RTPU_Process from a second host thread within 60 s, with the main
+    thread's bytes; capi_y4m on a Y4M of 8 seeded 1080p frames
+    byte-identical to `raisr-torch upscale` of the same clip and folder,
+    and capi_smoke exiting 0; the error codes of a card index out of range,
+    a missing folder and Process after Deinit. Prints Init's time, ms per
+    RTPU_Process beside engine.process and phase 4's per-frame share of the
+    batched step (`ms_step` for N_FRAMES frames), and capi_y4m's frames/s
+    beside the CLI's, all on the host's clock. Returns the launches and the
+    errors of the path by `kernels` row."""
+    import sysconfig
+    import threading
+
+    import numpy as np
+    import torch
+
+    from raisr_tpu_torch import RaisrConfig, RaisrEngine, capi_bridge
+    from raisr_tpu_torch.engine import Frame
+    from raisr_tpu_torch.native import build_capi
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+
+    t0 = time.perf_counter()
+    lib = build_capi.load()
+    print(f"phase 22 build: {build_capi.BUILD_DIR.name}/{build_capi.LIB_NAME}, "
+          f"{', '.join(build_capi.TOOLS)} in {time.perf_counter() - t0:.1f} s; Python "
+          f"{sysconfig.get_config_var('LDLIBRARY')} (shared: "
+          f"{sysconfig.get_config_var('Py_ENABLE_SHARED')}); RTPU_Version "
+          f"{lib.RTPU_Version().decode()}")
+    launches: dict[str, int] = {}
+    errs: dict[str, list] = {}
+
+    def fail(what: str):
+        raise SystemExit(f"phase 22 failed: {what}")
+
+    def host_frames(n: int, seed: int, bits: int = 8) -> list:
+        planes = [make_planes(n, h, w, seed + k, dev, bits).cpu().numpy()
+                  for k, (h, w) in enumerate(((LR_H, LR_W), (LR_H // 2, LR_W // 2),
+                                              (LR_H // 2, LR_W // 2)))]
+        return [Frame(y=planes[0][i], u=planes[1][i], v=planes[2][i]) for i in range(n)]
+
+    def c_frame(fr: Frame, cfg) -> CFrame:
+        ch, cw = cfg.output_size(*fr.u.shape)
+        return CFrame(fr, [cfg.output_size(*fr.y.shape), (ch, cw), (ch, cw)])
+
+    def init(folder: str, ratio: float, bits: int, passes: int, tier: int) -> float:
+        t = time.perf_counter()
+        rc = lib.RTPU_InitEx(folder.encode(), ratio, bits, 0, passes, 1, tier)
+        if rc != 0:
+            fail(f"RTPU_InitEx({folder}, {ratio}, {bits}, passes {passes}, tier {tier}) "
+                 f"returned {rc}")
+        return (time.perf_counter() - t) * 1e3
+
+    def drive(label, cfs, key, row, n_launch, blending=2):
+        """RTPU_Process over `cfs` with the counts set to 0 just before;
+        the fused launches must be exactly n_launch of form `key`."""
+        torch.cuda.synchronize()
+        zero(fk.LAUNCHES)
+        fk.EPILOGUE_LAUNCHES = 0
+        for cf in cfs:
+            rc = lib.RTPU_Process(*cf.planes(), blending)
+            if rc != 0:
+                fail(f"{label}: RTPU_Process returned {rc}")
+        counts, b = dict(fk.LAUNCHES), fk.EPILOGUE_LAUNCHES
+        print(f"phase 22 {label}: {len(cfs)} frames through RTPU_Process, fused launches "
+              f"{counts}, launch B {b}")
+        if counts.get(key) != n_launch or sum(counts.values()) != n_launch or b != n_launch:
+            fail(f"{label}: launch count")
+        launches[row] = launches.get(row, 0) + n_launch
+        launches["full_kernel_epilogue"] = launches.get("full_kernel_epilogue", 0) + b
+
+    def check(label, cfs, ref, row):
+        for i, cf in enumerate(cfs):
+            err = frame_err(cf.got(), ref.process(cf.frame))
+            errs.setdefault(row, []).append(err)
+            if err > KERNEL_MAX_ABS_ERR:
+                fail(f"{label}: frame {i} differs from engine.process (max {err})")
+        print(f"phase 22 {label}: Y/U/V of every frame equal to engine.process bit for bit, "
+              f"nothing written past a row's width")
+
+    folder = os.path.join(tmp, "bank")
+    model = make_bank(folder, seed=16)
+    frames = host_frames(N_FRAMES, 221)
+    if lib.RTPU_SetDevice(0) != 0:
+        fail("RTPU_SetDevice(0)")
+    times = {}
+    for tier, dtype, row in ((0, "float32", "full_kernel"), (1, "bfloat16", "full_kernel_bf16"),
+                             (2, "int8", "full_kernel_int8_8bit")):
+        init_ms = init(folder, 2.0, 8, PASSES, tier)
+        eng = capi_bridge._engine
+        if (eng.device != dev or eng.cfg.dtype != dtype or eng._statics.tier != dtype
+                or eng._backend != "pallas"):
+            fail(f"tier {tier}: engine on {eng.device}, dtype {eng.cfg.dtype}, tier "
+                 f"{eng._statics.tier}, backend {eng._backend}")
+        cfg = RaisrConfig(filterfolder=folder, passes=PASSES, dtype=dtype)
+        ref = RaisrEngine(cfg, model, device=dev)
+        cfs = [c_frame(fr, cfg) for fr in frames]
+        if lib.RTPU_SetRes(*cfs[0].planes()) != 0:
+            fail("RTPU_SetRes")
+        label = f"2x 8-bit {PASSES}-pass tier {tier} ({dtype})"
+        drive(label, cfs, (dtype, 4), row, N_FRAMES * PASSES)
+        check(label, cfs, ref, row)
+        ms_capi = host_ms(lambda: lib.RTPU_Process(*cfs[0].planes(), 2), 10)
+        ms_eng = host_ms(lambda: ref.process(frames[0]), 10)
+        times[dtype] = (init_ms, ms_capi, ms_eng)
+        if tier == 0:
+            # the other blending: its engine built once, from the same model
+            ref1 = RaisrEngine(RaisrConfig(filterfolder=folder, passes=PASSES, blending=1),
+                               model, device=dev)
+            cf1 = [c_frame(frames[0], cfg), c_frame(frames[0], cfg)]
+            drive("blending 1 (Randomness)", cf1[:1], (dtype, 4), row, PASSES, blending=1)
+            eng1 = capi_bridge._engines_by_blend.get(1)
+            drive("blending 1 again", cf1[1:], (dtype, 4), row, PASSES, blending=1)
+            if (eng1 is None or capi_bridge._engines_by_blend.get(1) is not eng1
+                    or eng1.model is not eng.model or len(capi_bridge._engines_by_blend) != 2):
+                fail("the second blending's engine was not built once from the same model")
+            check("blending 1 (Randomness)", cf1, ref1, row)
+            first = cfs[0]
+    # 10 bits: uint16 planes, 2x float32
+    folder10 = os.path.join(tmp, "bank10")
+    make_bank(folder10, bits=10, seed=16)
+    init(folder10, 2.0, 10, PASSES, 0)
+    cfg10 = RaisrConfig(filterfolder=folder10, bits=10, passes=PASSES)
+    cf10 = [c_frame(fr, cfg10) for fr in host_frames(1, 224, bits=10)]
+    drive("2x 10-bit (uint16) float32", cf10, ("float32", 4), "full_kernel_f32_10bit", PASSES)
+    check("2x 10-bit (uint16) float32", cf10, RaisrEngine(cfg10, device=dev),
+          "full_kernel_f32_10bit")
+    # 1.5x: the single-phase bank
+    folder15 = os.path.join(tmp, "bank15")
+    make_bank(folder15, passes=PASSES_15X, pixel_types=1, ratio=1.5, seed=15)
+    init(folder15, 1.5, 8, PASSES_15X, 0)
+    cfg15 = RaisrConfig(filterfolder=folder15, ratio=1.5, passes=PASSES_15X)
+    cf15 = [c_frame(frames[0], cfg15)]
+    drive("1.5x 8-bit float32", cf15, ("float32", 1), "full_kernel_single", PASSES_15X)
+    check("1.5x 8-bit float32", cf15, RaisrEngine(cfg15, device=dev), "full_kernel_single")
+
+    # a second host thread: ctypes gives the GIL up, the library takes it back
+    init(folder, 2.0, 8, PASSES, 0)
+    second = c_frame(frames[0], RaisrConfig(passes=PASSES))
+    rcs = []
+    thread = threading.Thread(target=lambda: rcs.append(lib.RTPU_Process(*second.planes(), 2)),
+                              daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    thread.join(60)
+    ms_thread = (time.perf_counter() - t0) * 1e3
+    got, want = second.got(), first.got()
+    same = (not thread.is_alive() and rcs == [0] and got is not None
+            and all(np.array_equal(a, b) for a, b in zip(got, want)))
+    print(f"phase 22 RTPU_Process from a second host thread: returned {rcs} in "
+          f"{ms_thread:.1f} ms, the main thread's bytes: {same}")
+    if not same:
+        fail("RTPU_Process from a second host thread")
+
+    # C hosts: capi_y4m against the CLI, capi_smoke
+    env = dict(os.environ, LD_LIBRARY_PATH=str(build_capi.BUILD_DIR))
+    env.pop(capi_bridge.DEVICE_ENV, None)
+    clip_frames = host_frames(8, 225)
+    src = os.path.join(tmp, "capi_in.y4m")
+    out_c, out_cli = os.path.join(tmp, "capi_out.y4m"), os.path.join(tmp, "cli_out.y4m")
+    write_y4m(src, clip_frames)
+    t0 = time.perf_counter()
+    r = subprocess.run([str(build_capi.BUILD_DIR / "capi_y4m"), src, out_c, folder, "2", "8",
+                        "0", str(PASSES), "1", "2"], capture_output=True, text=True,
+                       timeout=600, env=env)
+    s_capi = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"capi_y4m returned {r.returncode}: {r.stdout[-2000:]}{r.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    lines = cli_lines(["upscale", "-i", src, "-o", out_cli, "--passes", str(PASSES),
+                       "--filterfolder", folder], phase=22)
+    s_cli = time.perf_counter() - t0
+    with open(out_c, "rb") as a, open(out_cli, "rb") as b:
+        same = a.read() == b.read()
+    n = len(clip_frames)
+    print(f"phase 22 capi_y4m on {card}: {r.stderr.strip().splitlines()[-1]}; {s_capi:.2f} s "
+          f"= {n / s_capi:.2f} frames/s for the whole process (interpreter start, torch "
+          f"import, Init and Y4M I/O included); raisr-torch upscale in process {s_cli:.2f} s "
+          f"= {n / s_cli:.2f} frames/s ({lines[-1]}); byte-identical: {same}")
+    if not same:
+        fail("capi_y4m's output differs from raisr-torch upscale's")
+    r = subprocess.run([str(build_capi.BUILD_DIR / "capi_smoke"), folder], capture_output=True,
+                       text=True, timeout=600, env=env)
+    print(f"phase 22 capi_smoke: exit {r.returncode}, {r.stdout.strip().splitlines()[-1:]}")
+    if r.returncode != 0:
+        fail(f"capi_smoke: {r.stdout[-2000:]}{r.stderr[-2000:]}")
+
+    # error codes
+    n_cards = torch.cuda.device_count()
+    codes = [lib.RTPU_SetDevice(n_cards),
+             lib.RTPU_InitEx(folder.encode(), 2.0, 8, 0, PASSES, 1, 0),
+             lib.RTPU_SetDevice(0),
+             lib.RTPU_InitEx(os.path.join(tmp, "missing").encode(), 2.0, 8, 0, PASSES, 1, 0),
+             lib.RTPU_InitEx(folder.encode(), 2.0, 8, 0, PASSES, 1, 0),
+             lib.RTPU_Deinit(),
+             lib.RTPU_Process(*second.planes(), 2)]
+    print(f"phase 22 error codes: SetDevice({n_cards}) then InitEx {codes[1]} (want "
+          f"RTPU_ERROR_BAD_PARAMETER 1), InitEx on a missing folder {codes[3]}, "
+          f"RTPU_Process after RTPU_Deinit {codes[6]}")
+    if codes[0] or codes[1] != 1 or codes[2] or not codes[3] or codes[4] or codes[5] or \
+            not codes[6]:
+        fail(f"error codes {codes}")
+
+    step_share = ms_step / N_FRAMES
+    for dtype, (init_ms, ms_capi, ms_eng) in times.items():
+        print(f"phase 22 times on {card}, 1080p -> 4K 8-bit {PASSES}-pass {dtype}: RTPU_InitEx "
+              f"{init_ms:.1f} ms; RTPU_Process {ms_capi:.3f} ms a frame, engine.process "
+              f"{ms_eng:.3f} ms, phase 4's process_batch_device {step_share:.3f} ms a frame "
+              f"(float32, batch {N_FRAMES}) (host clock)")
+    return launches, errs
+
+
 def sync_all(devs) -> None:
     import torch
 
@@ -2098,7 +2391,7 @@ def main() -> int:
                         help="also trace 10 steps of each path and write "
                              "DIR/step_trace.json (2x) and DIR/step15_trace.json (1.5x)")
     parser.add_argument("--cards", type=int, default=0, metavar="N",
-                        help="instead of phases 1-21: the multi-device paths over N "
+                        help="instead of phases 1-22: the multi-device paths over N "
                              "visible cards (an even N >= 2) beside one card")
     args = parser.parse_args()
 
@@ -2283,12 +2576,16 @@ def main() -> int:
     shard_launches, shard_errs = run_shard(
         dev, card, engine, y, {"2": oy, "7": c15["oy"], "11": bf16_y["2x"], "13": int8_y,
                                "19": mode2_y}, kw, edges, filters, c15, hrs)
-    # the training and sharding paths' holds of earlier rows' kernels count in
-    # those rows, and the sharding path's launches with the main path's
+    with tempfile.TemporaryDirectory() as tmp:
+        capi_launches, capi_errs = run_capi(dev, card, tmp, ms_step)
+    # the training, sharding and C ABI paths' holds of earlier rows' kernels
+    # count in those rows, and the sharding and C ABI paths' launches with
+    # the main path's
     for r in rows:
         r["max_abs_err"] = max([r["max_abs_err"], *held.get(r["name"], []),
-                                *shard_errs.get(r["name"], [])])
-        r["launches"] += shard_launches.get(r["name"], 0)
+                                *shard_errs.get(r["name"], []),
+                                *capi_errs.get(r["name"], [])])
+        r["launches"] += shard_launches.get(r["name"], 0) + capi_launches.get(r["name"], 0)
     return finish(card, rows)
 
 

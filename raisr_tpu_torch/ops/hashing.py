@@ -88,6 +88,18 @@ def structure_tensor_separable(
     return outs[0], outs[1], outs[2]
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root, as the card's `sqrtf` (and XLA's) take
+    it. PyTorch's CPU sqrt is MKL's vector routine: it is not correctly
+    rounded, and on a process's first call some of its threads may round
+    otherwise from run to run, which moves a bucket and then the pixels
+    around it. On the CPU the root is therefore numpy's, the processor's own
+    correctly rounded instruction."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
 def atan2_approx(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Polynomial atan2 used by every reference SIMD path when built without
     SVML (USE_ATAN2_APPROX; reference: Raisr.cpp:770-793)."""
@@ -122,7 +134,7 @@ def hash_buckets(
     t = a + d
     det = a * d - b * b
     disc = torch.clamp(t * t * 0.25 - det, min=0.0)
-    sqr = torch.sqrt(disc)
+    sqr = sqrt_rn(disc)
     half_t = t * 0.5
     l1 = half_t + sqr
     l2 = torch.clamp(half_t - sqr, min=0.0)
@@ -133,8 +145,8 @@ def hash_buckets(
         angle < 0.0, torch.full_like(angle, PI), torch.zeros_like(angle)
     )
 
-    sqrt_l1 = torch.sqrt(l1)
-    sqrt_l2 = torch.sqrt(l2)
+    sqrt_l1 = sqrt_rn(l1)
+    sqrt_l2 = sqrt_rn(l2)
     coherence = (sqrt_l1 - sqrt_l2) / (sqrt_l1 + sqrt_l2 + 1e-17)
     strength = l1
 

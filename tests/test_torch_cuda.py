@@ -7,7 +7,8 @@ refusal above shared memory), launch A alone (apply_filters_hash), the
 engine's refusal of a bank over the CUDA pass's limits, the s8 matmul
 probe, and filter training's normal-equation kernel (against its float64
 plain version, run to run, its refusals, and one train_filterbank on the
-card against the CPU).
+card against the CPU), and the C ABI on the card (capi_bridge at each tier
+against engine.process; RTPU_Process from a second host thread).
 
 Every test here needs a CUDA card and skips without one. This file imports
 no jax, so it also runs where jax is absent; tests/conftest.py imports jax,
@@ -1006,3 +1007,58 @@ def test_stripe_launch_on_the_card(dtype, bits, ratio):
     launch = fk.raisr_pass_full(ext, b.filters, **kw)
     assert torch.equal(launch, fk.raisr_pass_full_reference(ext, b.filters, **kw))
     assert torch.equal(launch[sh.HR_HALO: sh.HR_HALO + hs], got[hs: 2 * hs])
+
+
+@pytest.mark.parametrize("tier,dtype", [(0, "float32"), (1, "bfloat16"), (2, "int8")])
+def test_capi_bridge_on_the_card_equals_engine_process(tmp_path, monkeypatch, tier, dtype):
+    """The C ABI's bridge with no device request runs on the card, at the
+    tier RTPU_InitEx names, and writes engine.process's frame into the
+    caller's strided planes bit for bit."""
+    from raisr_tpu_torch import capi_bridge as cb
+    from torch_port_util import StridedFrame, write_bank_folder
+
+    dev = require_cuda()
+    monkeypatch.delenv(cb.DEVICE_ENV, raising=False)
+    folder = write_bank_folder(tmp_path / "bank", passes=2, seed=22)
+    fr = StridedFrame(seed=22, h=64, w=96, pad=64)
+    try:
+        assert cb.init(folder, 2.0, 8, 0, 2, 1, tier=tier) == 0
+        assert cb._engine.device == dev and cb._engine._statics.tier == dtype
+        _zero(fk.LAUNCHES)
+        assert cb.process(*fr.args(), 2) == 0
+        assert fk.LAUNCHES[(dtype, 4)] == 2
+    finally:
+        cb.deinit()
+    want = RaisrEngine(RaisrConfig(filterfolder=folder, passes=2, dtype=dtype),
+                       device=dev).process(fr.frame())
+    for got, ref in zip(fr.got(), (want.y, want.u, want.v)):
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_capi_library_second_host_thread_on_the_card(tmp_path, monkeypatch):
+    """build/capi_torch/libraisr_tpu.so loaded here: RTPU_Process from a
+    second thread returns within its limit with the main thread's bytes."""
+    import threading
+
+    from raisr_tpu_torch import capi_bridge as cb
+    from raisr_tpu_torch.native import build_capi
+    from torch_port_util import StridedFrame, write_bank_folder
+
+    require_cuda()
+    monkeypatch.delenv(cb.DEVICE_ENV, raising=False)
+    folder = write_bank_folder(tmp_path / "bank", passes=2, seed=23)
+    fr = StridedFrame(seed=23, h=64, w=96, pad=64)
+    lib = build_capi.load()
+    out, rc = fr.fresh_out(), []
+    try:
+        assert lib.RTPU_InitEx(folder.encode(), 2.0, 8, 0, 2, 1, 0) == 0
+        assert lib.RTPU_Process(*fr.rtpu(), 2) == 0
+        t = threading.Thread(target=lambda: rc.append(lib.RTPU_Process(*fr.rtpu(out), 2)),
+                             daemon=True)
+        t.start()
+        t.join(60)
+    finally:
+        lib.RTPU_Deinit()
+    assert not t.is_alive() and rc == [0]
+    for a, b in zip(fr.got(), fr.got(out)):
+        np.testing.assert_array_equal(a, b)

@@ -170,6 +170,20 @@ def test_hash_buckets_match():
     assert 0 <= int(out.min()) and int(out.max()) < 216
 
 
+def test_sqrt_rn_is_correctly_rounded():
+    """The hash's roots on the CPU are the correctly rounded ones (numpy's
+    and the float64 root rounded to float32 agree), as JAX's and the card's
+    are; PyTorch's own CPU sqrt is MKL's and is not."""
+    rng = np.random.default_rng(11)
+    bits = rng.integers(0x00800000, 0x7F800000, 1 << 16, dtype=np.int64).astype(np.uint32)
+    x = bits.view(np.float32)
+    got = thash.sqrt_rn(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.sqrt(x.astype(np.float64)).astype(np.float32))
+    np.testing.assert_array_equal(got, np.asarray(jnp.sqrt(jnp.asarray(x))))
+    strided = torch.from_numpy(x).reshape(256, 256)[:, ::2]
+    np.testing.assert_array_equal(thash.sqrt_rn(strided).numpy(), got.reshape(256, 256)[:, ::2])
+
+
 def test_atan2_approx_matches():
     rng = np.random.default_rng(7)
     y = rng.normal(size=500).astype(np.float32)

@@ -215,3 +215,56 @@ def hash_agreement(pairs, jax_cfg, cfg):
             rows[ij[bad]] = rows[it[bad]] = False
             n, flipped = n + ij.size, flipped + int(bad.sum())
     return rows, flipped / max(n, 1)
+
+
+class StridedFrame:
+    """A seeded YUV420 frame as a C host hands it to the C ABI: strided
+    buffers with `pad` bytes past each row, and output buffers of ratio 2
+    filled with a sentinel, so that a write past a row's width shows.
+    `args(...)` gives capi_bridge.process's plane tuples."""
+
+    def __init__(self, bits=8, seed=0, h=24, w=32, pad=16):
+        dt = np.uint8 if bits == 8 else np.dtype("<u2")
+        rng = np.random.default_rng(seed)
+        lo, hi = (16, 240) if bits == 8 else (64, 960)
+        self.pad = pad
+        self.src = [smooth(h, w, bits, seed).astype(dt),
+                    rng.integers(lo, hi, (h // 2, w // 2)).astype(dt),
+                    rng.integers(lo, hi, (h // 2, w // 2)).astype(dt)]
+        self.inp = [self._buf(p.shape, dt, 0) for p in self.src]
+        for buf, p in zip(self.inp, self.src):
+            buf[:, :p.shape[1]] = p
+        self.out = [self._buf((2 * p.shape[0], 2 * p.shape[1]), dt, 0xAB) for p in self.src]
+
+    def _buf(self, shape, dt, fill):
+        return np.full((shape[0], shape[1] + self.pad // np.dtype(dt).itemsize), fill, dt)
+
+    def args(self, out=None):
+        def plane(buf, w):
+            return (buf.ctypes.data, w, buf.shape[0], buf.strides[0])
+
+        out = self.out if out is None else out
+        return ([plane(b, p.shape[1]) for b, p in zip(self.inp, self.src)]
+                + [plane(b, 2 * p.shape[1]) for b, p in zip(out, self.src)])
+
+    def rtpu(self, out=None):
+        """The six RTPUPlane pointers of RTPU_SetRes and RTPU_Process."""
+        import ctypes
+
+        from raisr_tpu_torch.native.build_capi import RTPUPlane
+
+        return [ctypes.byref(RTPUPlane(*a)) for a in self.args(out)]
+
+    def fresh_out(self):
+        return [np.full_like(b, 0xAB) for b in self.out]
+
+    def frame(self):
+        from raisr_tpu_torch.engine import Frame
+
+        return Frame(*(p.copy() for p in self.src))
+
+    def got(self, out=None):
+        out = self.out if out is None else out
+        for b, p in zip(out, self.src):  # nothing written past the width
+            assert (b[:, 2 * p.shape[1]:] == 0xAB).all()
+        return [b[:, :2 * p.shape[1]] for b, p in zip(out, self.src)]
