@@ -137,10 +137,25 @@ then the C ABI (run_capi):
      beside engine.process and the batched step's per-frame share, and
      capi_y4m's frames/s beside the CLI's, on the host's clock. Its
      launches and errors are added to the rows of the kernels it ran.
+then the validation sweep (run_sweep, raisr_tpu_torch.tools.validation_sweep):
+ 23. on the tool's seeded filter folders (2x lowres/highres/denoise at 8 and
+     10 bits, 1.5x highres/denoise; 2 passes each), every positive row of
+     the sweep through `raisr-torch upscale` with no --device, on 2 seeded
+     1080p frames (8-bit, or 10-bit in [64, 940)): exit 0 without
+     "[RAISR ERROR]", the output at the ratio (U and V too), every frame
+     equal to RaisrEngine(cfg).process on the card bit for bit, only the
+     fused form pass_statics names for the row and as many launches as its
+     dispatch groups and passes make; the same rows at 480x270 on the card
+     and with --device cpu (the plain passes), byte for byte; the negative
+     rows (exit nonzero) and the corrupt folders (exit nonzero with the
+     marker); the --shard rows print SKIP on one card; the phase's wall
+     time. Its launches are added to the rows of the kernels it ran.
 With --cards N it runs none of these phases, but the engine's data=N, rows=N
 and data=N/2,rows=2 over N real cards against the unsharded engine and the
-one-card mesh, their times, a card-to-card copy, and train_step_sharded
-over N cards against the one-card mesh, bit for bit.
+one-card mesh, their times, a card-to-card copy, train_step_sharded over N
+cards against the one-card mesh, bit for bit, and the sweep's --shard rows
+that N cards can serve, each against the same row without --shard, byte for
+byte.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. A time is one pair of CUDA events around back-to-back calls,
 over their count, so the device's pace and not the host's enqueue sets it. The `kernels` line gives every kernel form its bound (bound_ms,
@@ -2282,6 +2297,175 @@ def run_capi(dev, card: str, tmp: str, ms_step: float) -> tuple[dict, dict]:
     return launches, errs
 
 
+def sweep_row_kernel(key: tuple, bits: int, mode: int, passes: int) -> str:
+    """The `kernels` row a fused form of phase 23 counts in: the row of the
+    phase that holds that form against its plain version."""
+    tier, phases = key
+    if phases == 1:
+        return "full_kernel_single" if tier == "float32" else "full_kernel_single_bf16"
+    if tier == "float32" and bits == 8:
+        return "full_kernel_f32_8bit_mode2" if (mode, passes) == (2, 2) else "full_kernel"
+    return {"float32": "full_kernel_f32_10bit", "pcenter": "full_kernel_pcenter_10bit",
+            "int8": "full_kernel_int8_8bit", "bfloat16": "full_kernel_bf16"}[tier]
+
+
+def sweep_cli(vs, argv: list, label: str) -> str:
+    """One `raisr-torch upscale` of the sweep, in process: fails the phase
+    unless it exits 0 without the marker; returns its last line."""
+    rc, out, err = vs.run_cli(argv)
+    if rc != 0 or vs.MARKER in out + err:
+        raise SystemExit(f"phase 23 failed: {label}: exit {rc}: {(out + err)[-1000:]}")
+    return (out + err).strip().splitlines()[-1]
+
+
+def read_y4m(path: str):
+    from raisr_tpu_torch import video
+
+    rd = video.Y4MReader(path)
+    frames = list(rd)
+    rd.close()
+    return rd.fmt, frames
+
+
+def sweep_shards(card: str, tmp: str, root: str, vs) -> None:
+    """Phase 23's --shard rows: each runs where data x rows cards are
+    visible, on the 1080p clip, and must write the bytes of the same row
+    without --shard; with fewer cards it prints SKIP."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    for row in vs.positive_rows():
+        need, name = vs.shard_devices(row), vs.row_name(row)
+        if need == 1:
+            continue
+        if need > n_cards:
+            print(f"phase 23 SKIP (needs {need} cards, {n_cards} visible): {name}")
+            continue
+        src = vs.clip_for(tmp, row[2], LR_W, LR_H)
+        extra = row[-1]
+        k = extra.index("--shard")
+        base = row[:-1] + (extra[:k] + extra[k + 2:],)
+        outs, lines = [], []
+        for r, tag in ((row, "sharded"), (base, "unsharded")):
+            dst = os.path.join(tmp, f"sweep_{tag}.y4m")
+            lines.append(sweep_cli(vs, vs.upscale_argv(r, root, src, dst), name))
+            with open(dst, "rb") as f:
+                outs.append(f.read())
+        same = outs[0] == outs[1]
+        print(f"phase 23 {name} over {need} of {n_cards} cards on {card}: {lines[0]}; the bytes of "
+              f"the row without --shard: {same}")
+        if not same:
+            raise SystemExit(f"phase 23 failed: {name} differs from the row without --shard")
+
+
+def run_sweep(dev, card: str, tmp: str) -> dict:
+    """Phase 23: the validation sweep (raisr_tpu_torch.tools.validation_sweep)
+    on the card, on the tool's seeded folders. Each positive row through
+    `raisr-torch upscale` with no --device (the card is the default) on a
+    clip of 2 seeded 1080p frames (8-bit, or 10-bit in [64, 940)): exit 0
+    without the marker, 3840x2160 (2880x1620 at 1.5x) with U and V at the
+    ratio, every frame equal, bit for bit, to RaisrEngine(cfg).process on
+    the card (cfg built from the row's flags); only the fused form that
+    pass_statics names launched, and as often as the dispatch groups and
+    passes make. The same rows at 480x270 with --backend pallas on the card
+    and with --device cpu (the kernel's plain version), byte for byte. The
+    negative rows and corrupt folders by the tool's pass rule; the --shard
+    rows by sweep_shards. Prints the phase's wall time (host clock). Returns
+    the launches of the 1080p rows by `kernels` row."""
+    import numpy as np
+    import torch
+
+    from raisr_tpu_torch import RaisrEngine
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.tools import validation_sweep as vs
+
+    t_start = time.perf_counter()
+    root = vs.write_filter_folders(os.path.join(tmp, "filters"))
+    launches: dict[str, int] = {}
+
+    def fail(what: str):
+        raise SystemExit(f"phase 23 failed: {what}")
+
+    rows = [r for r in vs.positive_rows() if vs.shard_devices(r) == 1]
+    for row in rows:
+        name, (_, ratio, bits, passes, mode, _, extra) = vs.row_name(row), row
+        src, dst = vs.clip_for(tmp, bits, LR_W, LR_H), os.path.join(tmp, "sweep_out.y4m")
+        torch.cuda.synchronize()
+        zero(fk.LAUNCHES)
+        fk.EPILOGUE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        line = sweep_cli(vs, vs.upscale_argv(row, root, src, dst), name)
+        secs = time.perf_counter() - t0
+        counts = {k: n for k, n in fk.LAUNCHES.items() if n}
+        b = fk.EPILOGUE_LAUNCHES
+        cfg = vs.row_config(row, root)
+        engine = RaisrEngine(cfg, device=dev)
+        s = engine._statics
+        key = (s.tier, s.pixel_types if s.use_pixel_type else 1)
+        batch = int(extra[extra.index("--batch") + 1]) if "--batch" in extra else 1
+        # one launch a pass over each group's stack; a resize without a
+        # stacked form runs each frame of the (padded) group alone
+        per_group = 1 if cfg.resize_mode == "bilinear" else batch
+        expect = -(-2 // batch) * per_group * passes
+        fmt, got = read_y4m(dst)
+        out_h, out_w = cfg.output_size(LR_H, LR_W)
+        uv = cfg.output_size(LR_H // 2, LR_W // 2)
+        err = max(frame_err((g.y, g.u, g.v), engine.process(fr))
+                  for fr, g in zip(read_y4m(src)[1], got))
+        print(f"phase 23 {name} on {card}: {line} ({secs:.2f} s); output {fmt.width}x{fmt.height}"
+              f" {fmt.bits}-bit, U/V {got[0].u.shape}, {len(got)} frames; against "
+              f"RaisrEngine.process max abs {err}; fused form {counts} (pass_statics names "
+              f"{key}, {expect} launches expected), launch B {b}")
+        if ((fmt.width, fmt.height, fmt.bits, len(got)) != (out_w, out_h, bits, 2)
+                or got[0].u.shape != uv or got[0].v.shape != uv):
+            fail(f"{name}: output size")
+        if err > KERNEL_MAX_ABS_ERR:
+            fail(f"{name}: the CLI's frames differ from RaisrEngine.process")
+        if counts != {key: expect} or b != expect:
+            fail(f"{name}: launches {counts}, launch B {b}; expected {expect} of {key}")
+        k = sweep_row_kernel(key, bits, mode, passes)
+        launches[k] = launches.get(k, 0) + expect
+        launches["full_kernel_epilogue"] = launches.get("full_kernel_epilogue", 0) + b
+
+    t_small = time.perf_counter()
+    # the card against the CPU's plain passes, byte for byte
+    for row in rows:
+        name = vs.row_name(row)
+        src = vs.clip_for(tmp, row[2], 480, 270)
+        outs = []
+        for device in (None, "cpu"):
+            dst = os.path.join(tmp, f"sweep_small_{device}.y4m")
+            sweep_cli(vs, vs.upscale_argv(row, root, src, dst, "pallas", device),
+                      f"{name} at 480x270 on {device or 'the card'}")
+            outs.append(read_y4m(dst)[1])
+        err = max(frame_err((a.y, a.u, a.v), b) for a, b in zip(*outs))
+        frac = max(float(np.mean(a.y != b.y)) for a, b in zip(*outs))
+        print(f"phase 23 {name} at 480x270, the card against --device cpu: max abs {err}, "
+              f"Y differing {frac:.6%}")
+        if err > KERNEL_MAX_ABS_ERR:
+            fail(f"{name} at 480x270: the card's file differs from the CPU's")
+
+    t_neg = time.perf_counter()
+    clip = vs.clip_for(tmp, 8, LR_W, LR_H)
+    for argv, desc in vs.negative_cases(root, tmp, clip):
+        rc, out, err = vs.run_cli(argv)
+        print(f"phase 23 negative {desc}: exit {rc}")
+        if rc == 0:
+            fail(f"negative {desc} succeeded")
+    for name in vs.CORRUPT:
+        rc, out, err = vs.run_cli(["upscale", "-i", clip, "-o", os.path.join(tmp, "neg.y4m"),
+                                   "--filterfolder", vs.corrupt_folder(root, tmp, name)])
+        print(f"phase 23 corrupt folder {name}: exit {rc}, marker {vs.MARKER in out + err}")
+        if rc == 0 or vs.MARKER not in out + err:
+            fail(f"corrupt folder {name}")
+    sweep_shards(card, tmp, root, vs)
+    t_end = time.perf_counter()
+    print(f"phase 23 wall time on {card}: {t_end - t_start:.1f} s (host clock): folders and "
+          f"1080p rows {t_small - t_start:.1f} s, 480x270 rows on the card and the CPU "
+          f"{t_neg - t_small:.1f} s, negative rows and corrupt folders {t_end - t_neg:.1f} s")
+    return launches
+
+
 def sync_all(devs) -> None:
     import torch
 
@@ -2391,7 +2575,7 @@ def main() -> int:
                         help="also trace 10 steps of each path and write "
                              "DIR/step_trace.json (2x) and DIR/step15_trace.json (1.5x)")
     parser.add_argument("--cards", type=int, default=0, metavar="N",
-                        help="instead of phases 1-22: the multi-device paths over N "
+                        help="instead of phases 1-23: the multi-device paths over N "
                              "visible cards (an even N >= 2) beside one card")
     args = parser.parse_args()
 
@@ -2428,6 +2612,10 @@ def main() -> int:
             raise SystemExit(f"--cards {args.cards}: needs an even count >= 2 of visible cards "
                              f"({torch.cuda.device_count()} visible)")
         run_cards(card, [torch.device("cuda", i) for i in range(args.cards)])
+        from raisr_tpu_torch.tools import validation_sweep as vs
+
+        with tempfile.TemporaryDirectory() as tmp:
+            sweep_shards(card, tmp, vs.write_filter_folders(os.path.join(tmp, "filters")), vs)
         return finish(card, [])
 
     with tempfile.TemporaryDirectory() as folder:
@@ -2578,14 +2766,20 @@ def main() -> int:
                                "19": mode2_y}, kw, edges, filters, c15, hrs)
     with tempfile.TemporaryDirectory() as tmp:
         capi_launches, capi_errs = run_capi(dev, card, tmp, ms_step)
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep_launches = run_sweep(dev, card, tmp)
     # the training, sharding and C ABI paths' holds of earlier rows' kernels
-    # count in those rows, and the sharding and C ABI paths' launches with
-    # the main path's
+    # count in those rows, and the sharding, C ABI and sweep paths' launches
+    # with the main path's
+    missing = set(sweep_launches) - {r["name"] for r in rows}
+    if missing:
+        raise SystemExit(f"phase 23 failed: no `kernels` row for {sorted(missing)}")
     for r in rows:
         r["max_abs_err"] = max([r["max_abs_err"], *held.get(r["name"], []),
                                 *shard_errs.get(r["name"], []),
                                 *capi_errs.get(r["name"], [])])
-        r["launches"] += shard_launches.get(r["name"], 0) + capi_launches.get(r["name"], 0)
+        r["launches"] += (shard_launches.get(r["name"], 0) + capi_launches.get(r["name"], 0)
+                          + sweep_launches.get(r["name"], 0))
     return finish(card, rows)
 
 

@@ -18,6 +18,9 @@ Tolerances:
 import numpy as np
 import jax.numpy as jnp
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 import raisr_tpu.config as jcfg

@@ -18,6 +18,9 @@ import threading
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 import raisr_tpu_torch

@@ -14,6 +14,8 @@ import sys
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 from raisr_tpu.cli import main as jax_cli_main
 from raisr_tpu_torch import video
 from raisr_tpu_torch.cli import main as cli_main
@@ -341,6 +343,7 @@ def test_new_modules_import_no_jax(tmp_path):
         "from raisr_tpu_torch.ops import filter_apply, resize\n"
         "from raisr_tpu_torch.train import trainer\n"
         "from raisr_tpu_torch.ops.cuda import normal_eq\n"
+        "from raisr_tpu_torch.tools import validation_sweep\n"
         "pairs = [trainer.degrade(np.arange(32 * 40).reshape(32, 40) % 251, 2.0, 8)]\n"
         "trainer.train_filterbank(pairs, trainer.TrainConfig(), device='cpu')\n"
         f"rc = cli.main(['bench', '--width', '32', '--height', '24', '--frames', '1',\n"

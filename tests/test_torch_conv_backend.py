@@ -12,6 +12,9 @@ to the cross-backend bar (under 2% of pixels differ, median 0).
 import numpy as np
 import jax.numpy as jnp
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 import raisr_tpu.config as jcfg

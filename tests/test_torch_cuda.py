@@ -19,6 +19,9 @@ so there run it as
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 from raisr_tpu_torch import RaisrConfig, RaisrEngine

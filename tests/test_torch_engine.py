@@ -12,6 +12,9 @@ import sys
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 import raisr_tpu.config as jcfg

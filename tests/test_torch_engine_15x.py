@@ -10,6 +10,9 @@ runs once per module.
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 import raisr_tpu.config as jcfg

@@ -15,6 +15,9 @@ row r + 1 for output row r, full_kernel.py:645-647).
 import numpy as np
 import jax.numpy as jnp
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 from raisr_tpu.config import RaisrConfig as JConfig

@@ -14,6 +14,9 @@ border is outside the processed zone, so only [6:-6, 6:-6] is compared.
 import numpy as np
 import jax.numpy as jnp
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 import raisr_tpu.config as jcfg

@@ -18,6 +18,9 @@ inside the bar.
 import numpy as np
 import jax.numpy as jnp
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 from raisr_tpu.model.gaussian import gaussian_kernel_1d, normalization_factor

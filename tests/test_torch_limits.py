@@ -10,6 +10,9 @@ go on taking those banks, as raisr_tpu does.
 import numpy as np
 import jax.numpy as jnp
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 from raisr_tpu.config import RaisrConfig as JConfig

@@ -9,6 +9,9 @@ tolerance: the two libraries may add or fuse them in another order.
 import numpy as np
 import jax.numpy as jnp
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 from raisr_tpu.config import RaisrConfig as JConfig

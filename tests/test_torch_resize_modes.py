@@ -10,6 +10,9 @@ to raisr_tpu bit for bit (max abs error 0), un-rounded and rounded.
 import numpy as np
 import jax.numpy as jnp
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 import raisr_tpu.config as jcfg

@@ -16,6 +16,9 @@ kernel (ROADMAP C2). Planes are tens of rows; the file takes about 40 s.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 from raisr_tpu.ops.pipeline import pass_statics as jax_pass_statics

@@ -22,6 +22,9 @@ Tolerances:
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # CI's test job installs no torch
+
 import torch
 
 from raisr_tpu.config import RaisrConfig as JaxRaisrConfig
