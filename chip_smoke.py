@@ -15,7 +15,9 @@ It builds the port's CUDA kernels from the checkout's sources, then, for the
   2. drives the main path once, RaisrEngine.process_batch_device on 4 frames
      of 8-bit YUV420 1080p -> 4K, 2 passes, CountOfBitsChanged, with a bank
      of the real shape made from a seed, and checks every frame against the
-     plain passes, the port's taps engine and the chroma upscale;
+     plain passes, the port's taps engine and the chroma upscale, and that
+     the glue ran as 3 launches of its kernel (csrc/upscale.cu: Y, U, V)
+     and none of the PyTorch chain it replaces;
   3. captures that step in a CUDA graph and replays it;
   4. times the kernel against its plain version, and the serving step;
   5. with --profile DIR only: traces 10 serving steps with torch.profiler,
@@ -150,6 +152,16 @@ then the validation sweep (run_sweep, raisr_tpu_torch.tools.validation_sweep):
      rows (exit nonzero) and the corrupt folders (exit nonzero with the
      marker); the --shard rows print SKIP on one card; the phase's wall
      time. Its launches are added to the rows of the kernels it ran.
+then the glue kernel (run_glue, ops/cuda/upscale.py):
+ 24. each form of csrc/upscale.cu against its plain version, bit for bit, on
+     the inputs the main paths hand it (phase 2's frames: Y 2x and packed
+     U/V; phase 7's 1.5x; phase 14's uint16 frames at 10 and 16 bits;
+     phase 19's LR stack and the inter-pass upscale of its pass-1 stack),
+     each timed beside its plain version, its bytes' bound and
+     torch.nn.functional.interpolate of the same planes as float32; the
+     glue of one 2x step from the profiler, the plain chain's launches and
+     device ms beside the step's; the kernel's launches on every path
+     driven (each path counts them from 0, as it counts the fused passes).
 With --cards N it runs none of these phases, but the engine's data=N, rows=N
 and data=N/2,rows=2 over N real cards against the unsharded engine and the
 one-card mesh, their times, a card-to-card copy, train_step_sharded over N
@@ -162,7 +174,8 @@ over their count, so the device's pace and not the host's enqueue sets it. The `
 bound_by: the larger of its bytes over 3.35 TB/s and its dot's operations
 over the peak of their type) and library_ms, the time of one PyTorch call
 computing the same function where there is one (torch._int_mm for the
-probe, the one-hot torch.matmul form for the normal equations). Its last line is {"ok": true, "device": {...}}. It imports nothing of jax or
+probe, the one-hot torch.matmul form for the normal equations,
+torch.nn.functional.interpolate for the glue). Its last line is {"ok": true, "device": {...}}. It imports nothing of jax or
 raisr_tpu, and exits non-zero, with no result line, when there is no CUDA
 card or any phase fails.
 """
@@ -170,6 +183,7 @@ card or any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -210,6 +224,13 @@ NORMAL_EQ_MAX_REL_ERR = 1e-5
 # the value the output planes are filled with beforehand
 CAPI_ROW_PAD = 64
 CAPI_SENTINEL = 0xAB
+# the glue kernel (csrc/upscale.cu): its launches on every path driven, by
+# phase (glue_read), and the float operations an output value takes: 2x ~7
+# (the column pair's 3 a value halved, the row blend's 3, the round and
+# clamp's 3), the vectors ~12 (2 x 3 on rows, 3 on columns, the division,
+# round and clamp), 1x none
+GLUE_LAUNCHES: dict[str, int] = {}
+GLUE_OPS = {"1x": 0, "2x": 7, "vec": 12}
 
 
 def card_line() -> str:
@@ -225,7 +246,7 @@ def as_f64(t):
     kernels take uint16), anything else by a cast."""
     import torch
 
-    from raisr_tpu_torch.engine import unpack_planes
+    from raisr_tpu_torch.ops.cuda.upscale import unpack_planes
 
     return (unpack_planes(t) if t.dtype == torch.uint16 else t).to(torch.float64)
 
@@ -312,7 +333,7 @@ def make_planes(n: int, h: int, w: int, seed: int, device, bits: int = 8):
     import torch
     import torch.nn.functional as F
 
-    from raisr_tpu_torch.engine import pack_planes
+    from raisr_tpu_torch.ops.cuda.upscale import pack_planes
 
     rng = np.random.default_rng(seed)
     out = torch.zeros((n, 1, h, w), device=device)
@@ -424,6 +445,24 @@ def zero(counts: dict) -> None:
     counts.update(dict.fromkeys(counts, 0))
 
 
+def glue_zero() -> None:
+    """Sets the glue kernel's launch counts (ops/cuda/upscale.py) to 0, just
+    before a path is driven."""
+    from raisr_tpu_torch.ops.cuda import upscale as up
+
+    zero(up.UPSCALE_LAUNCHES)
+
+
+def glue_read(phase: str) -> int:
+    """The glue kernel's launches since glue_zero, just after a path was
+    driven: added to the `cheap_upscale` row under `phase` and returned."""
+    from raisr_tpu_torch.ops.cuda import upscale as up
+
+    n = sum(up.UPSCALE_LAUNCHES.values())
+    GLUE_LAUNCHES[phase] = GLUE_LAUNCHES.get(phase, 0) + n
+    return n
+
+
 def _union_us(spans) -> float:
     """Length of the union of (start, end) intervals."""
     total, cur_s, cur_e = 0.0, None, None
@@ -443,6 +482,7 @@ def _kernel_group(name: str) -> str:
                        ("epilogue_kernel", "launch B epilogue_kernel"),
                        ("gram_partials_kernel", "normal_eq gram_partials_kernel"),
                        ("gram_reduce_kernel", "normal_eq gram_reduce_kernel"),
+                       ("cheap_upscale_kernel", "glue cheap_upscale_kernel"),
                        ("Sort", "sort"), ("sort", "sort"),
                        ("CatArrayBatchedCopy", "PyTorch cat"),
                        ("gather", "PyTorch gather (non-2x resize)"),
@@ -527,6 +567,7 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
     from raisr_tpu_torch import RaisrConfig, RaisrEngine
     from raisr_tpu_torch.ops import pipeline
     from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.cuda import upscale as up
     from raisr_tpu_torch.ops.resize import cheap_upscale, cheap_upscale_stacked
 
     with tempfile.TemporaryDirectory() as folder:
@@ -549,7 +590,7 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
     # the launch of the 1.5x path: the stack of all frames, LR guard 6 rows,
     # 9 after the upscale, every row held
     lr_pad, hr_pad = 6, 6 * out_h // LR_H
-    stack_lr = pipeline.guard_band_stack(y.to(torch.float32), lr_pad)
+    stack_lr = up.guard_band_stack(y.to(torch.float32), lr_pad)
     stack = cheap_upscale_stacked(stack_lr, N_FRAMES, LR_H, lr_pad, out_h, hr_pad, out_w, 8)
     skw = dict(kw, blending=2, frame_h=out_h, frame_pad=hr_pad)
     got = fk.raisr_pass_full_single(stack, filters, **skw)
@@ -563,9 +604,13 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
     engine = RaisrEngine(cfg, model, device=dev)
     torch.cuda.synchronize()
     zero(fk.LAUNCHES)
+    glue_zero()
     oy, ou, ov = engine.process_batch_device(y, u, v)
     torch.cuda.synchronize()
     launches = fk.LAUNCHES[("float32", 1)]
+    glue = dict(up.UPSCALE_LAUNCHES)
+    if glue_read("7") != 3 or glue["vec"] != 3:
+        raise SystemExit(f"phase 7 failed: glue launches {glue}, expected 3 of the vectors' form")
     ok_shapes = (
         tuple(oy.shape) == (N_FRAMES, out_h, out_w)
         and tuple(ou.shape) == tuple(ov.shape) == (N_FRAMES, ch, cw)
@@ -597,10 +642,10 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
             raise SystemExit(f"phase 7 failed: Y frame {i} against the taps engine")
     for name, got, src in (("U", ou, u), ("V", ov, v)):
         for i in range(N_FRAMES):
-            want = pipeline.process_plane_uv(src[i], ch, cw, 8).to(torch.uint8)
+            want = up.cheap_upscale_planes_reference(src[i], ch, cw, 8, torch.uint8)
             if not torch.equal(got[i], want):
                 raise SystemExit(f"phase 7 failed: {name} frame {i} differs")
-    print("phase 7 U/V equal process_plane_uv: yes")
+    print(f"phase 7 U/V equal the plain chroma upscale: yes; glue launches {glue}")
 
     # -- phase 8: CUDA graph capture of the 1.5x step --------------------------
     (gy, gu, gv), graph = graph_step(engine, y, u, v)
@@ -669,6 +714,7 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
     from raisr_tpu_torch.ops import pipeline
     from raisr_tpu_torch.ops.cuda import filter_kernel as flk
     from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.cuda import upscale as up
     from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
     from raisr_tpu_torch.ops.resize import cheap_upscale
 
@@ -683,7 +729,7 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
     cheap = cheap_upscale(y[0].to(torch.float32), out_h, out_w, 8)
     # pass 1's input on the 2x path: the 4-frame guard-banded stack
     lr_pad = 6
-    stack = cheap_upscale(pipeline.guard_band_stack(y.to(torch.float32), lr_pad),
+    stack = cheap_upscale(up.guard_band_stack(y.to(torch.float32), lr_pad),
                           2 * (LR_H + 2 * lr_pad) * N_FRAMES, out_w, 8)
     skw = dict(pkw, frame_h=out_h, frame_pad=2 * lr_pad)
     gen = torch.Generator(device=dev).manual_seed(10)
@@ -902,12 +948,14 @@ def run_bf16(y, u, v, dev, card: str, model, kw: dict, c2: dict, c15: dict,
         engine = RaisrEngine(cfg, mdl, device=dev)
         torch.cuda.synchronize()
         zero(fk.LAUNCHES)
+        glue_zero()
         oy, ou, ov = engine.process_batch_device(y, u, v)
         torch.cuda.synchronize()
         launches = fk.LAUNCHES[("bfloat16", pt)]
+        glue = glue_read("11")
         print(f"phase 11 bf16 {tag} path (dtype auto): Y {tuple(oy.shape)}, launches "
-              f"{fk.LAUNCHES}")
-        if launches != len(mdl.banks) or sum(fk.LAUNCHES.values()) != launches:
+              f"{fk.LAUNCHES}, glue {glue}")
+        if launches != len(mdl.banks) or sum(fk.LAUNCHES.values()) != launches or glue != 3:
             raise SystemExit(f"phase 11 failed: {tag} launch count")
         out_h, out_w = oy.shape[1:]
         for i in range(N_FRAMES):
@@ -974,9 +1022,11 @@ def run_25x(y, dev, card: str, kw: dict) -> None:
     frame = y[:1]
     torch.cuda.synchronize()
     zero(fk.LAUNCHES)
+    glue_zero()
     oy = engine.process_batch_device(frame)[0]
     torch.cuda.synchronize()
-    print(f"phase 12 2.5x with a 4-phase bank: Y {tuple(oy.shape)}, launches {fk.LAUNCHES}")
+    print(f"phase 12 2.5x with a 4-phase bank: Y {tuple(oy.shape)}, launches {fk.LAUNCHES}, "
+          f"glue {glue_read('12')}")
     if (tuple(oy.shape) != (1, out_h, out_w)
             or fk.LAUNCHES != {k: int(k == ("float32", 1)) for k in fk.LAUNCHES}):
         raise SystemExit("phase 12 failed: shape or launch count")
@@ -1017,10 +1067,11 @@ def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None
     import torch
 
     from raisr_tpu_torch import RaisrEngine
-    from raisr_tpu_torch.engine import unpack_planes
+    from raisr_tpu_torch.ops.cuda.upscale import unpack_planes
     from raisr_tpu_torch.model.gaussian import gaussian_kernel_1d, normalization_factor
     from raisr_tpu_torch.ops import pipeline
     from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.cuda import upscale as up
     from raisr_tpu_torch.ops.resize import cheap_upscale, cheap_upscale_stacked
 
     y, u, v = frames
@@ -1055,7 +1106,7 @@ def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None
     up_pass = cfg.two_pass_mode - 1
     lr_pad = 12 if up_pass == 1 else 6
     hr_pad = lr_pad * out_h // LR_H
-    x = pipeline.guard_band_stack(lr, lr_pad)
+    x = up.guard_band_stack(lr, lr_pad)
     fh, fp = LR_H, lr_pad
     for p, (bank, extra) in enumerate(banks):
         if p == up_pass:
@@ -1074,17 +1125,21 @@ def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None
 
     torch.cuda.synchronize()
     zero(fk.LAUNCHES)
+    glue_zero()
     oy, ou, ov = engine.process_batch_device(y, u, v)
     torch.cuda.synchronize()
     counts = dict(fk.LAUNCHES)
     launches = counts[(tier, pt)]
+    # the glue: Y, U and V a launch each; mode 2 adds the LR stack's
+    glue = glue_read(str(phase))
     print(f"phase {phase} {tag} path ({cfg.dtype}, {bits} bits, tier {tier}): Y "
-          f"{tuple(oy.shape)} {oy.dtype}, launches {counts}")
+          f"{tuple(oy.shape)} {oy.dtype}, launches {counts}, glue {dict(up.UPSCALE_LAUNCHES)}")
     ch, cw = cfg.output_size(LR_H // 2, LR_W // 2)
     out_dtype = torch.uint8 if bits == 8 else torch.uint16
     if (tuple(oy.shape) != (N_FRAMES, out_h, out_w) or tuple(ou.shape) != (N_FRAMES, ch, cw)
             or not oy.dtype == ou.dtype == ov.dtype == out_dtype
-            or launches != passes or sum(counts.values()) != launches):
+            or launches != passes or sum(counts.values()) != launches
+            or glue != 3 + (up_pass == 1)):
         raise SystemExit(f"phase {phase} failed: {tag} shapes, dtype or launch count")
     oyf = unpack_planes(oy)
     if not torch.equal(oyf, stack_y):
@@ -1107,13 +1162,13 @@ def run_tier(phase: int, tag: str, cfg, model, frames, dev, card: str, base=None
         if mx > KERNEL_MAX_ABS_ERR:
             raise SystemExit(f"phase {phase} failed: {tag} Y frame {i} against the plain passes")
     for name, got, src in (("U", ou, u), ("V", ov, v)):
-        if not torch.equal(unpack_planes(got), pipeline.process_plane_uv(
-                unpack_planes(src), ch, cw, bits)):
+        if not torch.equal(unpack_planes(got), up.cheap_upscale_planes_reference(
+                src, ch, cw, bits)):
             raise SystemExit(f"phase {phase} failed: {tag} {name} differs")
     (gy, gu, gv), graph = graph_step(engine, y, u, v)
     same = all(torch.equal(unpack_planes(a), unpack_planes(b))
                for a, b in ((gy, oy), (gu, ou), (gv, ov)))
-    print(f"phase {phase} {tag} U/V equal process_plane_uv: yes; CUDA graph replay "
+    print(f"phase {phase} {tag} U/V equal the plain chroma upscale: yes; CUDA graph replay "
           f"equals eager: {same}")
     if not same:
         raise SystemExit(f"phase {phase} failed: {tag} graph replay")
@@ -1274,6 +1329,7 @@ def run_stream(dev, card: str, tmp: str, kw: dict, resident_ms: float):
     from raisr_tpu_torch.engine import Frame
     from raisr_tpu_torch.ops import pipeline
     from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.cuda import upscale as up
     from raisr_tpu_torch.ops.resize import cheap_upscale
     from raisr_tpu_torch.stream import StreamProcessor
     from raisr_tpu_torch.utils.profiler import Tracer
@@ -1304,12 +1360,15 @@ def run_stream(dev, card: str, tmp: str, kw: dict, resident_ms: float):
         torch.cuda.synchronize()
         zero(fk.LAUNCHES)
         fk.EPILOGUE_LAUNCHES = 0
+        glue_zero()
         sp = StreamProcessor(engine, depth=depth, batch=b)
         if "step's" in label:
             one_stream(sp)
         got = list(sp.process(iter(frames[:n])))
         counts = fused_counts()
         groups = -(-n // b)
+        if glue_read("16") != 3 * groups:
+            raise SystemExit(f"phase 16 failed: {label}: glue launches, expected 3 a group")
         same = frames_equal(got, want[:n])
         print(f"phase 16 stream, {label}: {len(got)} frames {got[0].y.shape} {got[0].y.dtype}, "
               f"equal to engine.process bit for bit: {same}; fused passes launched "
@@ -1386,7 +1445,7 @@ def run_stream(dev, card: str, tmp: str, kw: dict, resident_ms: float):
           f"resident step {resident_ms:.3f} ms; on the host's clock: staging into pinned "
           f"memory {ms_stage:.3f} ms, enqueueing the step {ms_enqueue:.3f} ms")
     # the row's times: pass 1 over the stream's own stack
-    stack = cheap_upscale(pipeline.guard_band_stack(res[0].to(torch.float32), 6),
+    stack = cheap_upscale(up.guard_band_stack(res[0].to(torch.float32), 6),
                           2 * (LR_H + 12) * batch, out_w, 8)
     skw = dict(kw, **edges[0], blending=2, frame_h=out_h, frame_pad=12)
     ms = cuda_ms(lambda: fk.raisr_pass_full(stack, filters[0], **skw), 10, 2)
@@ -1425,9 +1484,11 @@ def run_cli(card: str, tmp: str, c16: dict) -> None:
     folder = c16["folder"]
     zero(fk.LAUNCHES)
     fk.EPILOGUE_LAUNCHES = 0
+    glue_zero()
     lines = cli_lines(["upscale", "-i", src, "-o", dst, "--passes", str(PASSES), "--batch", "4",
                        "--filterfolder", folder])
     launches = (fk.LAUNCHES[("float32", 4)], fk.EPILOGUE_LAUNCHES)
+    glue_read("17")
     rd = video.Y4MReader(dst)
     got = list(rd)
     rd.close()
@@ -1794,8 +1855,10 @@ def run_train(dev, card: str, tmp: str, kw: dict) -> dict:
                       for x in hrs[:4]]).to(dev)
     engine = RaisrEngine(rcfg, model, device=dev)
     zero(fk.LAUNCHES)
+    glue_zero()
     oy = engine.process_batch_device(y4)[0]
     torch.cuda.synchronize()
+    glue_read("20")
     print(f"phase 20 the trained 2x bank served from its folder: Y {tuple(oy.shape)} {oy.dtype}, "
           f"fused passes {fk.LAUNCHES[('float32', 4)]}")
     if tuple(oy.shape) != (4, h, w) or fk.LAUNCHES[("float32", 4)] != 2:
@@ -1909,8 +1972,10 @@ def run_shard(dev, card: str, engine, y, want: dict, kw: dict, edges, filters, c
         torch.cuda.synchronize()
         zero(fk.LAUNCHES)
         fk.EPILOGUE_LAUNCHES = 0
+        glue_zero()
         got = fn()
         torch.cuda.synchronize()
+        glue_read("21")
         counts = {k: c for k, c in fk.LAUNCHES.items() if c}
         same = got.device == dev and torch.equal(got, expect.to(torch.float32))
         print(f"phase 21 {label}: Y {tuple(got.shape)} on {got.device}, equal to the unsharded "
@@ -2144,11 +2209,13 @@ def run_capi(dev, card: str, tmp: str, ms_step: float) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         zero(fk.LAUNCHES)
         fk.EPILOGUE_LAUNCHES = 0
+        glue_zero()
         for cf in cfs:
             rc = lib.RTPU_Process(*cf.planes(), blending)
             if rc != 0:
                 fail(f"{label}: RTPU_Process returned {rc}")
         counts, b = dict(fk.LAUNCHES), fk.EPILOGUE_LAUNCHES
+        glue_read("22")
         print(f"phase 22 {label}: {len(cfs)} frames through RTPU_Process, fused launches "
               f"{counts}, launch B {b}")
         if counts.get(key) != n_launch or sum(counts.values()) != n_launch or b != n_launch:
@@ -2393,9 +2460,11 @@ def run_sweep(dev, card: str, tmp: str) -> dict:
         torch.cuda.synchronize()
         zero(fk.LAUNCHES)
         fk.EPILOGUE_LAUNCHES = 0
+        glue_zero()
         t0 = time.perf_counter()
         line = sweep_cli(vs, vs.upscale_argv(row, root, src, dst), name)
         secs = time.perf_counter() - t0
+        glue_read("23")
         counts = {k: n for k, n in fk.LAUNCHES.items() if n}
         b = fk.EPILOGUE_LAUNCHES
         cfg = vs.row_config(row, root)
@@ -2551,6 +2620,180 @@ def run_cards(card: str, devs) -> None:
         raise SystemExit(f"phase 21 failed: train_step_sharded over {n} cards")
 
 
+# the PyTorch chain the glue kernel replaces on the card's route: (module,
+# name) of each piece, none of which phase 2's step may call
+CHAIN = (("raisr_tpu_torch.ops.cuda.upscale", "guard_band_stack"),
+         ("raisr_tpu_torch.ops.cuda.upscale", "unpack_planes"),
+         ("raisr_tpu_torch.ops.pipeline", "unpack_planes"),
+         ("raisr_tpu_torch.engine", "unpack_planes"),
+         ("raisr_tpu_torch.ops.resize", "_upscale_axis_2x"))
+
+
+@contextlib.contextmanager
+def counting_calls(names):
+    """Wraps each (module, function) of `names` in a stand-in that counts its
+    calls, for the block; yields the counts by function name."""
+    import importlib
+
+    calls = {}
+    saved = []
+    for mod_name, fn_name in names:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, fn_name)
+        saved.append((mod, fn_name, fn))
+        calls[f"{mod_name.rsplit('.', 1)[-1]}.{fn_name}"] = 0
+
+        def stand_in(*a, _key=f"{mod_name.rsplit('.', 1)[-1]}.{fn_name}", _fn=fn, **k):
+            calls[_key] += 1
+            return _fn(*a, **k)
+
+        setattr(mod, fn_name, stand_in)
+    try:
+        yield calls
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def glue_kernels_a_step(step, steps: int = 5) -> tuple[float, float, float]:
+    """Launches and device ms a call of `step` outside the fused pass's
+    kernels (launches A1, A2, B), and the glue kernel's launches among them,
+    from a torch.profiler trace of `steps` calls. One call runs inside the
+    trace before them and is not counted: the trace can miss a kernel just
+    after it starts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+        for _ in range(steps):
+            with record_function("glue_step"):
+                step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "glue.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    t0 = min(float(e["ts"]) for e in events if e.get("name") == "glue_step" and "dur" in e)
+    glue = [e for e in events if e.get("cat") == "kernel" and "dur" in e
+            and float(e["ts"]) >= t0 and not _kernel_group(e["name"]).startswith("launch")]
+    ours = [e for e in glue if _kernel_group(e["name"]).startswith("glue")]
+    return (len(glue) / steps, sum(float(e["dur"]) for e in glue) / steps / 1000,
+            len(ours) / steps)
+
+
+def run_glue(y, u, v, dev, card: str, engine, oy, filters, kw: dict, edges) -> dict:
+    """Phase 24: the glue kernel (csrc/upscale.cu) against its plain version
+    (ops/cuda/upscale.py), bit for bit, on the inputs the main paths hand it:
+    phase 2's uint8 frames (Y guard 6, 2x; U and V packed in and out), phase
+    7's 1.5x (the vectors' form), phase 14's uint16 frames at 10 and 16 bits
+    (2x) and at 10 bits (1.5x), phase 19's mode-2 LR stack (guard 12) and
+    its inter-pass upscale of pass 1's float32 stack; each timed beside its
+    plain version, its bytes' bound and torch.nn.functional.interpolate
+    (bilinear, align_corners=False) of the same planes as float32, which
+    leaves out the rounding and the guard band. Then the glue of one 2x step
+    from the profiler: the plain chain's launches and device ms (what the
+    step ran before this kernel) beside the step's own. Returns the
+    `cheap_upscale` row: the 2x Y form's numbers, the launches of every path
+    driven (GLUE_LAUNCHES)."""
+    import torch
+    import torch.nn.functional as F
+
+    from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.cuda import upscale as up
+
+    def view(t):
+        return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+    def check(label, form, fn, ref, src, size):
+        got, want = fn(), ref()
+        torch.cuda.synchronize()
+        same = (got.dtype == want.dtype and got.shape == want.shape
+                and torch.equal(view(got), view(want)))
+        err = 0.0 if same else float("inf")
+        if not same and got.shape == want.shape:
+            err = float((as_f64(got) - as_f64(want)).abs().max())
+        planes = up.unpack_planes(src if src.dim() == 3 else src[None])[:, None]
+        ms, plain = graph_ms(fn, 20), graph_ms(ref, 20)
+        lib = graph_ms(lambda: F.interpolate(planes, size=size, mode="bilinear",
+                                             align_corners=False), 20)
+        bnd = bound(nbytes(src), nbytes(got), got.numel() * GLUE_OPS[form], "float32")
+        print(f"phase 24 {label}: {tuple(src.shape)} {src.dtype} -> {tuple(got.shape)} "
+              f"{got.dtype}, form {form}, vs plain max abs {err}; on {card}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+              f"{100 * bnd['bound_ms'] / ms:.1f}% of it), interpolate {lib:.4f} ms")
+        if not (same and torch.isfinite(as_f64(got)).all()):
+            raise SystemExit(f"phase 24 failed: {label}")
+        return dict(err=err, ms=ms, plain=plain, lib=lib, bnd=bnd)
+
+    out_h, out_w = 2 * LR_H, 2 * LR_W
+    h15, w15 = 3 * LR_H // 2, 3 * LR_W // 2
+    ch, cw = LR_H // 2, LR_W // 2
+    results = []
+
+    def stack(label, x, pad, oh, ow, bits, form):
+        args = (x, N_FRAMES, LR_H, pad, oh, ow, bits)
+        frames = x if x.dim() == 3 else x.reshape(N_FRAMES, -1, x.shape[-1])
+        results.append(check(label, form, lambda: up.cheap_upscale_stack(*args),
+                             lambda: up.cheap_upscale_stack_reference(*args), frames, (oh, ow)))
+
+    def planes(label, p, oh, ow, bits):
+        form = "2x" if (oh, ow) == (2 * p.shape[1], 2 * p.shape[2]) else "vec"
+        args = (p, oh, ow, bits, p.dtype)
+        results.append(check(label, form, lambda: up.cheap_upscale_planes(*args),
+                             lambda: up.cheap_upscale_planes_reference(*args), p, (oh, ow)))
+
+    stack("phase 2 Y, 2x, guard 6", y, 6, out_h, out_w, 8, "2x")
+    main = results[0]
+    planes("phase 2 U", u, LR_H, LR_W, 8)
+    planes("phase 2 V", v, LR_H, LR_W, 8)
+    stack("phase 7 Y, 1.5x, guard 6", y, 6, h15, w15, 8, "vec")
+    planes("phase 7 U", u, 3 * ch // 2, 3 * cw // 2, 8)
+    for bits in (10, 16):
+        y16 = make_planes(N_FRAMES, LR_H, LR_W, 41, dev, bits)
+        u16 = make_planes(N_FRAMES, ch, cw, 42, dev, bits)
+        stack(f"phase 14 Y, {bits}-bit, 2x", y16, 6, out_h, out_w, bits, "2x")
+        planes(f"phase 14 U, {bits}-bit, 2x", u16, LR_H, LR_W, bits)
+        if bits == 10:
+            stack("phase 14 Y, 10-bit, 1.5x", y16, 6, h15, w15, bits, "vec")
+            planes("phase 14 U, 10-bit, 1.5x", u16, 3 * ch // 2, 3 * cw // 2, bits)
+    stack("phase 19 Y, the LR stack, guard 12", y, 12, LR_H, LR_W, 8, "1x")
+    lr = up.cheap_upscale_stack_reference(y, N_FRAMES, LR_H, 12, LR_H, LR_W, 8)
+    pass1 = fk.raisr_pass_full(lr, filters[0], blending=2, frame_h=LR_H, frame_pad=12,
+                               **dict(kw, **edges[0]))
+    stack("phase 19 pass 1's float32 stack, 2x", pass1, 12, out_h, out_w, 8, "2x")
+
+    # the glue of one 2x step: the plain chain (the step's glue before this
+    # kernel: unpack, guard band, upscale and pack of Y; unpack, upscale and
+    # pack of U and V) beside the step's kernels outside the fused pass
+    oyf = up.unpack_planes(oy)
+    n_before, ms_before, _ = glue_kernels_a_step(lambda: (
+        up.cheap_upscale_stack_reference(y, N_FRAMES, LR_H, 6, out_h, out_w, 8),
+        up.pack_planes(oyf, torch.uint8),
+        up.cheap_upscale_planes_reference(u, LR_H, LR_W, 8, torch.uint8),
+        up.cheap_upscale_planes_reference(v, LR_H, LR_W, 8, torch.uint8)))
+    n_after, ms_after, n_kernel = glue_kernels_a_step(
+        lambda: engine.process_batch_device(y, u, v))
+    launches = sum(GLUE_LAUNCHES.values())
+    print(f"phase 24 the glue of a 2x step ({N_FRAMES} frames 1080p -> 4K, 8-bit) on {card}, "
+          f"from the profiler: the plain chain {n_before:g} launches, {ms_before:.3f} ms; the "
+          f"step now {n_after:g} launches ({n_kernel:g} of the kernel), {ms_after:.3f} ms")
+    print(f"phase 24 cheap_upscale launches by phase {GLUE_LAUNCHES}: {launches}")
+    if n_kernel != 3 or not launches:
+        raise SystemExit("phase 24 failed: the step's glue launches")
+    row = kernel_row("cheap_upscale", "raisr_tpu_torch/csrc/upscale.cu",
+                     "raisr_tpu/ops/resize.py:180 (XLA fusion, no Pallas)", launches,
+                     [r["err"] for r in results], main["ms"], main["plain"], main["bnd"],
+                     main["lib"])
+    row["library_call"] = ("torch.nn.functional.interpolate(bilinear, align_corners=False) of "
+                           "the frames as float32: no rounding, no guard band")
+    return row
+
+
 def graph_step(engine, y, u, v):
     """Warm up on a side stream, capture one serving step in a CUDA graph and
     replay it. Returns the graph's outputs (Y, U, V) and the graph."""
@@ -2575,7 +2818,7 @@ def main() -> int:
                         help="also trace 10 steps of each path and write "
                              "DIR/step_trace.json (2x) and DIR/step15_trace.json (1.5x)")
     parser.add_argument("--cards", type=int, default=0, metavar="N",
-                        help="instead of phases 1-23: the multi-device paths over N "
+                        help="instead of phases 1-24: the multi-device paths over N "
                              "visible cards (an even N >= 2) beside one card")
     args = parser.parse_args()
 
@@ -2592,6 +2835,7 @@ def main() -> int:
     from raisr_tpu_torch.ops import pipeline
     from raisr_tpu_torch.ops.cuda import _build
     from raisr_tpu_torch.ops.cuda import full_kernel as fk
+    from raisr_tpu_torch.ops.cuda import upscale as up
     from raisr_tpu_torch.ops.resize import cheap_upscale
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2649,7 +2893,7 @@ def main() -> int:
     # the launches of the main path: each pass over the guard-banded stack of
     # all frames (LR guard 6 rows, 12 after the 2x upscale), every row held
     lr_pad = 6
-    stack_lr = pipeline.guard_band_stack(y.to(torch.float32), lr_pad)
+    stack_lr = up.guard_band_stack(y.to(torch.float32), lr_pad)
     x = cheap_upscale(stack_lr, 2 * stack_lr.shape[0], out_w, 8)
     for p in range(PASSES):
         pkw = dict(kw, **edges[p], blending=2, frame_h=out_h, frame_pad=2 * lr_pad)
@@ -2666,10 +2910,17 @@ def main() -> int:
     torch.cuda.synchronize()
     zero(fk.LAUNCHES)
     fk.EPILOGUE_LAUNCHES = 0
-    oy, ou, ov = engine.process_batch_device(y, u, v)
-    torch.cuda.synchronize()
+    glue_zero()
+    with counting_calls(CHAIN) as chain_calls:
+        oy, ou, ov = engine.process_batch_device(y, u, v)
+        torch.cuda.synchronize()
     launches = fk.LAUNCHES[("float32", 4)]
     b_launches = fk.EPILOGUE_LAUNCHES
+    glue = dict(up.UPSCALE_LAUNCHES)
+    glue_read("2")
+    print(f"phase 2 glue launches {glue}; calls of the PyTorch chain it replaces {chain_calls}")
+    if glue != {"1x": 0, "2x": 3, "vec": 0} or any(chain_calls.values()):
+        raise SystemExit("phase 2 failed: the glue ran other than as 3 launches of the kernel")
     if sum(fk.LAUNCHES.values()) != launches:
         raise SystemExit(f"phase 2 failed: the 2x path launched another form {fk.LAUNCHES}")
     ok_shapes = (
@@ -2708,10 +2959,10 @@ def main() -> int:
             raise SystemExit(f"phase 2 failed: Y frame {i} against the taps engine")
     for name, got, src in (("U", ou, u), ("V", ov, v)):
         for i in range(N_FRAMES):
-            want = pipeline.process_plane_uv(src[i], LR_H, LR_W, 8).to(torch.uint8)
+            want = up.cheap_upscale_planes_reference(src[i], LR_H, LR_W, 8, torch.uint8)
             if not torch.equal(got[i], want):
                 raise SystemExit(f"phase 2 failed: {name} frame {i} differs")
-    print("phase 2 U/V equal process_plane_uv: yes")
+    print("phase 2 U/V equal the plain chroma upscale: yes")
 
     # -- phase 3: CUDA graph capture of the serving step ---------------------
     (gy, gu, gv), graph = graph_step(engine, y, u, v)
@@ -2768,6 +3019,7 @@ def main() -> int:
         capi_launches, capi_errs = run_capi(dev, card, tmp, ms_step)
     with tempfile.TemporaryDirectory() as tmp:
         sweep_launches = run_sweep(dev, card, tmp)
+    rows.append(run_glue(y, u, v, dev, card, engine, oy, filters, kw, edges))
     # the training, sharding and C ABI paths' holds of earlier rows' kernels
     # count in those rows, and the sharding, C ABI and sweep paths' launches
     # with the main path's

@@ -19,6 +19,7 @@ import torch
 from raisr_tpu_torch.config import RaisrConfig, Backend, RaisrError
 from raisr_tpu_torch.model.loader import load_model, RaisrModel, bank_tensors
 from raisr_tpu_torch.ops.cuda.filter_kernel import check_bank_limits
+from raisr_tpu_torch.ops.cuda.upscale import pack_planes, unpack_planes
 from raisr_tpu_torch.ops.pipeline import (
     pass_banks,
     pass_statics,
@@ -33,23 +34,6 @@ from raisr_tpu_torch.parallel.sharding import (
     process_plane_row_sharded,
     stripe_problem,
 )
-
-
-def unpack_planes(t: torch.Tensor) -> torch.Tensor:
-    """Packed integer planes (uint8, uint16) -> float32, on their device.
-    uint16 has few kernels on CUDA, so it is read through its int16 view (a
-    reinterpretation, no copy) and widened in int32."""
-    if t.dtype == torch.uint16:
-        t = t.view(torch.int16).to(torch.int32) & 0xFFFF
-    return t.to(torch.float32)
-
-
-def pack_planes(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Integer-valued float32 planes in [0, 2^bits) -> `dtype` (uint8 or
-    uint16; uint16 written through int32 and an int16 view)."""
-    if dtype == torch.uint16:
-        return x.to(torch.int32).to(torch.int16).view(torch.uint16)
-    return x.to(dtype)
 
 
 def _resolve_backend(cfg: RaisrConfig, device: torch.device) -> str:
@@ -265,11 +249,12 @@ class RaisrEngine:
         )
 
     def process_batch_y(self, batch_y: torch.Tensor) -> torch.Tensor:
-        """Batched luma processing ([N, H, W] in, [N, oH, oW] out).
+        """Batched luma processing ([N, H, W] in, [N, oH, oW] float32 out).
 
         On the fused backend the batch rides ONE kernel launch per pass as a
         guard-banded vertical stack with per-frame zone masks; the output is
-        exactly N x upscale_y.
+        exactly N x upscale_y. The frames are integer values, packed (uint8,
+        uint16) or float32; row stripes take float32.
 
         With a shard spec (engine shard= / CLI --shard) the batch is spread
         over the mesh: frames over the data axis (each device runs the
@@ -305,12 +290,13 @@ class RaisrEngine:
             out_w,
         )
 
-    def process_batch_uv(self, batch_uv: torch.Tensor) -> torch.Tensor:
-        """Batched chroma cheap upscale ([N, H, W] in)."""
+    def process_batch_uv(self, batch_uv: torch.Tensor,
+                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Batched chroma cheap upscale ([N, H, W] in, `out_dtype` out)."""
         n, h, w = batch_uv.shape
         out_h, out_w = self.cfg.output_size(h, w)
         return process_plane_uv(batch_uv, out_h, out_w, self.cfg.bits,
-                                self.cfg.resize_mode)
+                                self.cfg.resize_mode, out_dtype)
 
     def process_batch_device(
         self,
@@ -321,12 +307,19 @@ class RaisrEngine:
         """Device-resident serving step: packed integer planes in, packed
         integer planes out, all on the engine's device.
 
-        Unpacks to float32, runs the RAISR passes on Y and the cheap upscale
-        on U/V, and repacks to uint8 (bits=8) or uint16 (10/16), with no host
-        synchronisation: no `.item()`, no copy to the host, no branch on
-        tensor values. That is what lets a caller capture the step in a CUDA
-        graph, the analogue of raisr_tpu's one-jit step under
-        jax.transfer_guard("disallow") (tests/test_stream.py:56-93).
+        Runs the RAISR passes on Y and the cheap upscale on U/V, and packs to
+        uint8 (bits=8) or uint16 (10/16), with no host synchronisation: no
+        `.item()`, no copy to the host, no branch on tensor values. That is
+        what lets a caller capture the step in a CUDA graph, the analogue of
+        raisr_tpu's one-jit step under jax.transfer_guard("disallow")
+        (tests/test_stream.py:56-93).
+
+        The packed frames go to process_batch_y as they are (row stripes
+        take them unpacked to float32): on the stacked route one glue launch
+        (ops/cuda/upscale.py) unpacks, guard-bands and upscales them into
+        pass 1's input, and U and V take one launch each, packed in and
+        packed out, so a 2x step's glue is three launches and the final
+        pack of Y.
 
         Y is [N, H, W]; U/V are optional [N, Hc, Wc] chroma batches."""
         for name, t in (("y", batch_y), ("u", batch_u), ("v", batch_v)):
@@ -335,13 +328,8 @@ class RaisrEngine:
                     f"batch_{name} is on {t.device}, the engine on {self.device}."
                 )
         dtype = self._out_dtype
-        out_y = pack_planes(self.process_batch_y(unpack_planes(batch_y)), dtype)
-        out_u = (
-            pack_planes(self.process_batch_uv(unpack_planes(batch_u)), dtype)
-            if batch_u is not None else None
-        )
-        out_v = (
-            pack_planes(self.process_batch_uv(unpack_planes(batch_v)), dtype)
-            if batch_v is not None else None
-        )
+        y = batch_y if self._shard["rows"] == 1 else unpack_planes(batch_y)
+        out_y = pack_planes(self.process_batch_y(y), dtype)
+        out_u = self.process_batch_uv(batch_u, dtype) if batch_u is not None else None
+        out_v = self.process_batch_uv(batch_v, dtype) if batch_v is not None else None
         return out_y, out_u, out_v

@@ -124,5 +124,8 @@ def load_library() -> ctypes.CDLL:
     fn = lib.raisr_normal_eq
     fn.argtypes = [vp, vp, vp, vp, vp, vp, i, vp, vp, i, vp, vp, vp, i, i, i, vp]
     fn.restype = i
+    fn = lib.raisr_cheap_upscale
+    fn.argtypes = [vp, i, vp, i, i, i, i, i, i, i, i, i, vp, vp, vp, vp, vp, vp, f, f, f, i, vp]
+    fn.restype = i
     _LIB = lib
     return lib

@@ -37,9 +37,15 @@ from raisr_tpu_torch.ops.cuda.full_kernel import (
     raisr_pass_full,
     round_bf16_error_diffused,
 )
+from raisr_tpu_torch.ops.cuda.upscale import (
+    cheap_upscale_planes,
+    cheap_upscale_stack,
+    pack_planes,
+    unpack_planes,
+)
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
 from raisr_tpu_torch.ops.filter_apply import apply_filters_conv, apply_filters_taps
-from raisr_tpu_torch.ops.resize import cheap_upscale, cheap_upscale_stacked
+from raisr_tpu_torch.ops.resize import cheap_upscale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,17 +316,6 @@ def process_plane_y(
     return x
 
 
-def guard_band_stack(batch: torch.Tensor, pad: int) -> torch.Tensor:
-    """[N, H, W] -> [N*(H+2*pad), W]: each frame replicate-padded with `pad`
-    rows above and below, the frames stacked vertically (the plane that one
-    fused launch per pass takes, with frame_h=H and frame_pad=pad)."""
-    n, h, w = batch.shape
-    x = torch.cat(
-        [batch[:, :1].expand(n, pad, w), batch, batch[:, -1:].expand(n, pad, w)], dim=1
-    )
-    return x.reshape(n * (h + 2 * pad), w)
-
-
 def process_plane_y_batch(
     batch_lr: torch.Tensor,  # [N, H, W]
     bank_filters: tuple[PassBank, ...],
@@ -341,7 +336,12 @@ def process_plane_y_batch(
     the bilinear resize and a ratio that scales the guard and the period to
     whole rows (2x always; 1.5x when h divides 1.5 * guard, e.g. 1080 ->
     1620 with a 9-row HR guard in mode 1, 18 in mode 2); anything else
-    loops over the frames."""
+    loops over the frames.
+
+    `batch_lr` holds integer values as uint8, uint16 or float32. On the
+    stack, one cheap_upscale_stack (one glue launch on a CUDA device) builds
+    pass 1's input from the frames, and in mode 2 one more upscales pass 1's
+    stack."""
     n, h, w = batch_lr.shape
     s = statics
     # LR guard: 6 rows covers the resize support; when pass 1 runs at LR
@@ -355,6 +355,7 @@ def process_plane_y_batch(
         and (out_h * (h + 2 * lr_pad)) % h == 0
     )
     if not stackable:
+        batch_lr = unpack_planes(batch_lr)
         return torch.stack([
             process_plane_y(
                 y, bank_filters, statics, passes, two_pass_mode, out_h, out_w
@@ -362,22 +363,21 @@ def process_plane_y_batch(
             for y in batch_lr
         ])
 
-    x = guard_band_stack(batch_lr.to(torch.float32), lr_pad)
+    x = batch_lr
     cur_fh, cur_pad = h, lr_pad
 
     for pass_idx in range(passes):
-        if pass_idx + 1 == two_pass_mode:
-            if out_h == 2 * h and out_w == 2 * w:
-                # 2x: the slice-based resize has fixed per-row weights, so
-                # the whole-stack upscale equals the per-frame one
-                cheap = cheap_upscale(x, 2 * x.shape[0], out_w, s.bits)
-            else:
-                # other ratios: per-frame weight vectors tiled over the
-                # stack, so frame rows equal the per-frame upscale exactly
-                cheap = cheap_upscale_stacked(
-                    x, n, h, cur_pad, out_h, cur_pad * out_h // h, out_w, s.bits
-                )
-            cur_fh, cur_pad = out_h, cur_pad * out_h // h
+        upscale = pass_idx + 1 == two_pass_mode
+        if pass_idx == 0 or upscale:
+            # pass 1's input from the frames (guard-banded, and upscaled when
+            # pass 1 upscales), or mode 2's upscale of pass 1's stack. At 2x
+            # the fixed per-row weights make the whole-stack upscale equal
+            # the per-frame one; at other ratios per-frame row vectors are
+            # tiled over the stack, so frame rows equal it exactly
+            oh, ow = (out_h, out_w) if upscale else (h, w)
+            cheap = cheap_upscale_stack(x, n, h, lr_pad, oh, ow, s.bits)
+            if upscale:
+                cur_fh, cur_pad = out_h, lr_pad * out_h // h
         else:
             cheap = x
         x = raisr_pass(
@@ -394,11 +394,18 @@ def process_plane_y_batch(
 
 def process_plane_uv(
     lr: torch.Tensor, out_h: int, out_w: int, bits: int,
-    mode: str = "bilinear",
+    mode: str = "bilinear", out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Chroma planes only get the cheap upscale (Raisr.cpp:1373-1388).
 
-    `lr` is one plane [H, W] or a batch [N, H, W]: the upscale works on the
-    last two dims at any ratio, so each frame gets its own edge clamp. This one function
-    stands for raisr_tpu's process_plane_uv and process_plane_uv_batch."""
-    return cheap_upscale(lr.to(torch.float32), out_h, out_w, bits, mode=mode)
+    `lr` is one plane [H, W] or a batch [N, H, W] of integer values (uint8,
+    uint16 or float32); the result is `out_dtype` (float32, or packed as
+    pack_planes packs). The upscale works on the last two dims at any ratio,
+    so each frame gets its own edge clamp. This one function stands for
+    raisr_tpu's process_plane_uv and process_plane_uv_batch. The bilinear
+    resize is one cheap_upscale_planes (one glue launch on a CUDA device,
+    packed in and out); cubic and lanczos run in PyTorch."""
+    if mode == "bilinear":
+        return cheap_upscale_planes(lr, out_h, out_w, bits, out_dtype)
+    return pack_planes(cheap_upscale(unpack_planes(lr), out_h, out_w, bits, mode=mode),
+                       out_dtype)

@@ -52,7 +52,8 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from raisr_tpu_torch.engine import RaisrEngine, Frame, pack_planes, unpack_planes
+from raisr_tpu_torch.engine import RaisrEngine, Frame
+from raisr_tpu_torch.ops.cuda.upscale import pack_planes, unpack_planes
 from raisr_tpu_torch.utils.profiler import Tracer
 
 

@@ -30,13 +30,14 @@ import torch
 import torch.nn.functional as F
 
 from raisr_tpu_torch.config import RaisrConfig
-from raisr_tpu_torch.engine import resolve_device, unpack_planes
+from raisr_tpu_torch.engine import resolve_device
 from raisr_tpu_torch.model.gaussian import gaussian_weights
 from raisr_tpu_torch.model.loader import FilterBank, RaisrModel
 from raisr_tpu_torch.ops import census, hashing
 from raisr_tpu_torch.ops.cuda.filter_kernel import apply_filters
 from raisr_tpu_torch.ops.cuda.full_kernel import pass_epilogue
 from raisr_tpu_torch.ops.cuda.normal_eq import accumulate_normal_eq, normal_eq_reference
+from raisr_tpu_torch.ops.cuda.upscale import unpack_planes
 from raisr_tpu_torch.ops.pipeline import pass_statics
 from raisr_tpu_torch.ops.resize import cheap_upscale
 

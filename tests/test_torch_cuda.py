@@ -5,7 +5,9 @@ pcenter, int8; 4 and 1 phases), launch B alone (pass_epilogue), the filter
 apply (apply_filters, 4 and 1 phases, banks of 1 to 256 buckets and the
 refusal above shared memory), launch A alone (apply_filters_hash), the
 engine's refusal of a bank over the CUDA pass's limits, the s8 matmul
-probe, and filter training's normal-equation kernel (against its float64
+probe, the serving step's glue (cheap_upscale_stack, cheap_upscale_planes:
+every instance of csrc/upscale.cu against its plain version, the launches of
+a step), and filter training's normal-equation kernel (against its float64
 plain version, run to run, its refusals, and one train_filterbank on the
 card against the CPU), and the C ABI on the card (capi_bridge at each tier
 against engine.process; RTPU_Process from a second host thread).
@@ -30,6 +32,7 @@ from raisr_tpu_torch.model.loader import FilterBank, RaisrModel
 from raisr_tpu_torch.ops.cuda import filter_kernel as flk
 from raisr_tpu_torch.ops.cuda import full_kernel as fk
 from raisr_tpu_torch.ops.cuda import probe_s16 as ps
+from raisr_tpu_torch.ops.cuda import upscale as up
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
 from torch_port_util import (QCOH, QSTR, make_filters, patchwork, require_cuda, smooth,
                              smooth_frames)
@@ -1065,3 +1068,175 @@ def test_capi_library_second_host_thread_on_the_card(tmp_path, monkeypatch):
     assert not t.is_alive() and rc == [0]
     for a, b in zip(fr.got(), fr.got(out)):
         np.testing.assert_array_equal(a, b)
+
+
+# -- the serving step's glue (csrc/upscale.cu) --------------------------------
+
+# (packed type, bits): each input type the kernel reads, uint16 at 10 and 16 bits
+_GLUE_TYPES = [(torch.uint8, 8), (torch.uint16, 10), (torch.uint16, 16), (torch.float32, 8)]
+_GLUE_SHAPES = [(n, h, w) for n in (1, 4) for h in (1, 2, 5) for w in (1, 7, 33, 4700)]
+
+
+def _packed(v: np.ndarray, dtype, dev) -> torch.Tensor:
+    np_type = {torch.uint8: np.uint8, torch.uint16: np.uint16, torch.float32: np.float32}
+    return torch.from_numpy(np.ascontiguousarray(v.astype(np_type[dtype]))).to(dev)
+
+
+def _glue_frames(n, h, w, bits, dtype, seed, dev) -> torch.Tensor:
+    """Seeded integers over [0, 2^bits - 1], both ends present."""
+    top = (1 << bits) - 1
+    v = np.random.default_rng(seed).integers(0, top + 1, (n, h, w))
+    v.flat[0], v.flat[-1] = 0, top
+    return _packed(v, dtype, dev)
+
+
+def _same(got, want) -> bool:
+    """Equal type, shape and bits (uint16 through its int16 view)."""
+    view = lambda t: t.view(torch.int16) if t.dtype == torch.uint16 else t
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(view(got), view(want)))
+
+
+def _glue_sizes(h, w):
+    """(form, out_h, out_w): the stack alone, 2x, and 1.5x (exact where the
+    size is even, the float form where it is odd)."""
+    return [("1x", h, w), ("2x", 2 * h, 2 * w), ("vec", 3 * h // 2, 3 * w // 2)]
+
+
+@pytest.mark.parametrize("dtype,bits", _GLUE_TYPES)
+def test_upscale_stack_from_frames_matches_plain_version(dtype, bits):
+    """Pass 1's input from packed frames, guard band on the fly, every form
+    (1x with mode 2's 12-row guard), widths 1 to 4700, 1 and 4 frames."""
+    dev = require_cuda()
+    for n, h, w in _GLUE_SHAPES:
+        x = _glue_frames(n, h, w, bits, dtype, n * h * w, dev)
+        for form, oh, ow in _glue_sizes(h, w):
+            pad = 12 if form == "1x" else 6
+            before = dict(up.UPSCALE_LAUNCHES)
+            got = up.cheap_upscale_stack(x, n, h, pad, oh, ow, bits)
+            want = up.cheap_upscale_stack_reference(x, n, h, pad, oh, ow, bits)
+            torch.cuda.synchronize()
+            before[up._stack_form(h, w, oh, ow)] += 1
+            assert up.UPSCALE_LAUNCHES == before
+            assert _same(got, want), (n, h, w, form, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("bits", [8, 10, 16])
+def test_upscale_of_a_float_stack_matches_plain_version(bits):
+    """Mode 2's inter-pass upscale: a float32 stack that has its guard band
+    (12 rows), 2x and 1.5x."""
+    dev = require_cuda()
+    for n, h, w in _GLUE_SHAPES:
+        x = up.guard_band_stack(_glue_frames(n, h, w, bits, torch.float32, h + w, dev), 12)
+        for form, oh, ow in _glue_sizes(h, w)[1:]:
+            got = up.cheap_upscale_stack(x, n, h, 12, oh, ow, bits)
+            want = up.cheap_upscale_stack_reference(x, n, h, 12, oh, ow, bits)
+            assert _same(got, want), (n, h, w, form)
+
+
+@pytest.mark.parametrize("dtype,bits", _GLUE_TYPES)
+@pytest.mark.parametrize("packed_out", [True, False])
+def test_upscale_planes_matches_plain_version(dtype, bits, packed_out):
+    """Chroma batches, each plane its own edge clamp, 2x and 1.5x, packed
+    out (the input's type, or uint8/uint16 from float32 input) or float32."""
+    dev = require_cuda()
+    out_dtype = torch.float32
+    if packed_out:
+        out_dtype = dtype if dtype != torch.float32 else torch.uint8
+    for n, h, w in _GLUE_SHAPES:
+        x = _glue_frames(n, h, w, bits, dtype, 7 * n + h + w, dev)
+        for form, oh, ow in _glue_sizes(h, w)[1:]:
+            before = sum(up.UPSCALE_LAUNCHES.values())
+            got = up.cheap_upscale_planes(x, oh, ow, bits, out_dtype)
+            want = up.cheap_upscale_planes_reference(x, oh, ow, bits, out_dtype)
+            torch.cuda.synchronize()
+            assert sum(up.UPSCALE_LAUNCHES.values()) == before + 1
+            assert _same(got, want), (n, h, w, form, out_dtype)
+            assert _same(up.cheap_upscale_planes(x[0], oh, ow, bits, out_dtype), want[0])
+
+
+@pytest.mark.parametrize("dtype,bits", _GLUE_TYPES)
+def test_upscale_ties_and_extremes(dtype, bits):
+    """A plane of 2^bits - 1 everywhere, and columns alternating 0 and
+    2^bits - 1: the quarter weights land on .5 ties and at the clamp."""
+    dev = require_cuda()
+    top = (1 << bits) - 1
+    full = np.full((2, 6, 40), top)
+    stripes = np.zeros((2, 6, 40), np.int64)
+    stripes[..., 1::2] = top
+    for v in (full, stripes, stripes.transpose(0, 2, 1).copy()):
+        x = _packed(v, dtype, dev)
+        n, h, w = x.shape
+        for form, oh, ow in _glue_sizes(h, w)[1:]:
+            assert _same(up.cheap_upscale_stack(x, n, h, 6, oh, ow, bits),
+                         up.cheap_upscale_stack_reference(x, n, h, 6, oh, ow, bits))
+            assert _same(up.cheap_upscale_planes(x, oh, ow, bits, dtype),
+                         up.cheap_upscale_planes_reference(x, oh, ow, bits, dtype))
+
+
+def test_upscale_in_a_cuda_graph_equals_eager():
+    dev = require_cuda()
+    x = _glue_frames(4, 36, 52, 8, torch.uint8, 9, dev)
+    calls = [lambda: up.cheap_upscale_stack(x, 4, 36, 6, 72, 104, 8),
+             lambda: up.cheap_upscale_stack(x, 4, 36, 6, 54, 78, 8),
+             lambda: up.cheap_upscale_planes(x, 54, 78, 8, torch.uint8)]
+    eager = [fn() for fn in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(outs, eager))
+
+
+def test_upscale_refuses_what_it_does_not_take():
+    dev = require_cuda()
+    with pytest.raises(ValueError, match="uint8, uint16 or float32"):
+        up.cheap_upscale_planes(torch.zeros((4, 4), dtype=torch.int32, device=dev), 8, 8, 8)
+    with pytest.raises(ValueError, match="are not 2 of 4 rows"):
+        up.cheap_upscale_stack(torch.zeros((3, 4, 4), dtype=torch.uint8, device=dev),
+                               2, 4, 6, 8, 8, 8)
+
+
+@pytest.mark.parametrize("cfg,y_shape,counts", [
+    (dict(passes=2), (4, 36, 52), {"1x": 0, "2x": 3, "vec": 0}),
+    (dict(passes=2, mode=2), (4, 36, 52), {"1x": 1, "2x": 3, "vec": 0}),
+    (dict(passes=1, ratio=1.5), (4, 36, 52), {"1x": 0, "2x": 0, "vec": 3}),
+])
+def test_step_glue_launches(monkeypatch, cfg, y_shape, counts):
+    """One step on the card: the glue's launches (Y, U, V; mode 2 adds the
+    LR stack) and none of the PyTorch chain's pieces, which are made to
+    raise; the frames equal the CPU engine's."""
+    from raisr_tpu_torch import engine as eng_mod
+    from raisr_tpu_torch.ops import pipeline, resize
+
+    dev = require_cuda()
+    pt = 1 if cfg.get("ratio") == 1.5 else 4
+    model = _model(passes=cfg["passes"], seed=8, pixel_types=pt)
+    y = _glue_frames(*y_shape, 8, torch.uint8, 10, dev)
+    u = _glue_frames(4, 18, 26, 8, torch.uint8, 11, dev)
+    eng = RaisrEngine(RaisrConfig(**cfg), model, device=dev)
+    eng.process_batch_device(y, u, u)  # the vectors of a shape, built once
+    torch.cuda.synchronize()
+
+    def refused(*args, **kw):
+        raise AssertionError("the PyTorch glue ran on the card's route")
+
+    for mod, name in ((up, "guard_band_stack"), (up, "unpack_planes"), (up, "cheap_upscale"),
+                      (up, "cheap_upscale_stacked"), (resize, "_upscale_axis_2x"),
+                      (pipeline, "unpack_planes"), (eng_mod, "unpack_planes")):
+        monkeypatch.setattr(mod, name, refused)
+    _zero(up.UPSCALE_LAUNCHES)
+    oy, ou, ov = eng.process_batch_device(y, u, u)
+    torch.cuda.synchronize()
+    assert up.UPSCALE_LAUNCHES == counts
+    monkeypatch.undo()
+    cpu = RaisrEngine(RaisrConfig(backend="pallas", **cfg), model, device="cpu")
+    cy, cu, _ = cpu.process_batch_device(y.cpu(), u.cpu(), u.cpu())
+    assert torch.equal(oy.cpu(), cy) and torch.equal(ou.cpu(), cu)
