@@ -82,7 +82,7 @@ folder and loaded from it; 24 distinct 8-bit YUV420 1080p frames from a seed):
      frame equal to engine.process of it, bit for bit, also at batch 1 and on
      22 frames (a tail of 2); 2 fused launches a group; the first group
      against the plain passes; frames/s at depth 1, 2 and 4 beside phase 4's
-     resident step, the Tracer's report, and a group's copies and staging
+     resident step, the Tracer's stages, and a group's copies and staging
      timed apart;
  17. the CLI in process: `raisr-torch upscale` of the frames as a Y4M file,
      the output read back (3840x2160, 24 frames, each equal to phase 16's),
@@ -1416,10 +1416,10 @@ def run_stream(dev, card: str, tmp: str, kw: dict, resident_ms: float):
               f"process_batch_device alone on resident frames (phase 4) {resident:.2f} frames/s")
     tracer = Tracer()
     sp = StreamProcessor(engine, depth=2, batch=batch, tracer=tracer)
-    tracer.reset()
     sum(1 for _ in sp.process(iter(clip)))
-    print(f"phase 16 Tracer report of one run at depth 2 (host ms): "
-          f"{json.dumps(tracer.report())}")
+    stages = ", ".join(f"{k} {s.count} times, {1e3 * s.total_s:.3f} ms"
+                       for k, s in tracer.stages.items())
+    print(f"phase 16 Tracer stages of one run at depth 2 (host clock): {stages}")
     # what a group costs apart: the copies on the device's clock, the
     # staging on the host's
     pin = [torch.empty((batch,) + p.shape[1:], dtype=torch.uint8, pin_memory=True) for p in planes]

@@ -26,6 +26,7 @@ import torch
 
 from raisr_tpu_torch.config import RaisrConfig, BlendingMode, RangeType
 from raisr_tpu_torch.engine import RaisrEngine, Frame
+from raisr_tpu_torch.utils.profiler import span
 
 DEVICE_ENV = "RAISR_TPU_TORCH_DEVICE"
 # RTPUTier -> RaisrConfig.dtype, as raisr_tpu's bridge maps it
@@ -154,9 +155,10 @@ def process(
             dst = _view(addr, h, w, step, bits)
             np.copyto(dst, plane[:h, :w])
 
-        wr(out_y, result.y)
-        wr(out_cb, result.u)
-        wr(out_cr, result.v)
+        with span("raisr.capi.write"):
+            wr(out_y, result.y)
+            wr(out_cb, result.u)
+            wr(out_cr, result.v)
         return 0
     except Exception as e:  # noqa: BLE001
         print(f"[RAISR ERROR] {e}")

@@ -34,6 +34,7 @@ from raisr_tpu_torch.parallel.sharding import (
     process_plane_row_sharded,
     stripe_problem,
 )
+from raisr_tpu_torch.utils.profiler import span
 
 
 def _resolve_backend(cfg: RaisrConfig, device: torch.device) -> str:
@@ -238,15 +239,17 @@ class RaisrEngine:
         """Upscale one frame (numpy in / numpy out)."""
         if frame.y is None:
             raise RaisrError("Y plane is required.")
-        y = self.upscale_y(self._put(frame.y))
-        u = self.upscale_uv(self._put(frame.u)) if frame.u is not None else None
-        v = self.upscale_uv(self._put(frame.v)) if frame.v is not None else None
-        to_np = lambda a: a.cpu().numpy().astype(self._np_out_dtype)
-        return Frame(
-            y=to_np(y),
-            u=to_np(u) if u is not None else None,
-            v=to_np(v) if v is not None else None,
-        )
+        with span("raisr.frame"):
+            with span("raisr.frame.put"):
+                y, u, v = (self._put(p) if p is not None else None
+                           for p in (frame.y, frame.u, frame.v))
+            y = self.upscale_y(y)
+            u = self.upscale_uv(u) if u is not None else None
+            v = self.upscale_uv(v) if v is not None else None
+            with span("raisr.frame.get"):
+                y, u, v = (p.cpu().numpy().astype(self._np_out_dtype) if p is not None
+                           else None for p in (y, u, v))
+        return Frame(y=y, u=u, v=v)
 
     def process_batch_y(self, batch_y: torch.Tensor) -> torch.Tensor:
         """Batched luma processing ([N, H, W] in, [N, oH, oW] float32 out).
@@ -321,15 +324,23 @@ class RaisrEngine:
         packed out, so a 2x step's glue is three launches and the final
         pack of Y.
 
+        Under a torch.profiler the step is the span `raisr.step`, holding
+        `raisr.glue` and `raisr.pass` (ops/pipeline.py), then `raisr.chroma`
+        (U and V) and `raisr.pack` (the pack of Y).
+
         Y is [N, H, W]; U/V are optional [N, Hc, Wc] chroma batches."""
-        for name, t in (("y", batch_y), ("u", batch_u), ("v", batch_v)):
-            if t is not None and t.device != self.device:
-                raise RaisrError(
-                    f"batch_{name} is on {t.device}, the engine on {self.device}."
-                )
-        dtype = self._out_dtype
-        y = batch_y if self._shard["rows"] == 1 else unpack_planes(batch_y)
-        out_y = pack_planes(self.process_batch_y(y), dtype)
-        out_u = self.process_batch_uv(batch_u, dtype) if batch_u is not None else None
-        out_v = self.process_batch_uv(batch_v, dtype) if batch_v is not None else None
+        with span("raisr.step"):
+            for name, t in (("y", batch_y), ("u", batch_u), ("v", batch_v)):
+                if t is not None and t.device != self.device:
+                    raise RaisrError(
+                        f"batch_{name} is on {t.device}, the engine on {self.device}."
+                    )
+            dtype = self._out_dtype
+            y = batch_y if self._shard["rows"] == 1 else unpack_planes(batch_y)
+            y = self.process_batch_y(y)
+            with span("raisr.chroma"):
+                out_u = self.process_batch_uv(batch_u, dtype) if batch_u is not None else None
+                out_v = self.process_batch_uv(batch_v, dtype) if batch_v is not None else None
+            with span("raisr.pack"):
+                out_y = pack_planes(y, dtype)
         return out_y, out_u, out_v

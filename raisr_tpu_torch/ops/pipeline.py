@@ -46,6 +46,7 @@ from raisr_tpu_torch.ops.cuda.upscale import (
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end
 from raisr_tpu_torch.ops.filter_apply import apply_filters_conv, apply_filters_taps
 from raisr_tpu_torch.ops.resize import cheap_upscale
+from raisr_tpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,67 +131,68 @@ def raisr_pass(
             f"a stripe must start on a multiple of {s.ratio_int}, got row0 {row0}"
         )
 
-    if s.backend == "pallas":
-        # whole pass in one fused call: 4-phase for ratio-2 banks, else the
-        # single-phase form over a single-phase bank or the phase-0 rows of a
-        # 4-phase one (pass_banks; pass_statics refuses any other bank), at
-        # the statics' tier over the bank pass_banks prepared for it
-        return raisr_pass_full(
-            cheap,
-            bank.filters,
-            k1d=tuple(float(v) for v in gaussian_kernel_1d(s.patch_size)),
-            nf=normalization_factor(s.bits),
-            qstr=qstr,
-            qcoh=qcoh,
-            qangle=s.qangle,
-            qstrength=s.qstrength,
-            qcoherence=s.qcoherence,
-            patch_size=s.patch_size,
-            min_val=s.min_val,
-            max_val=s.max_val,
-            blending=int(s.blending),
-            exact_edges=s.exact_edges,
-            frame_h=frame_h,
-            frame_pad=frame_pad,
-            row0=row0,
-            zone_h=zone_h,
-            pixel_types=4 if s.use_pixel_type else 1,
-            tier=s.tier,
-            pbias=bank.pbias,
-            inv_scale=bank.inv_scale,
-        )
-    if s.backend not in ("taps", "conv"):
-        raise RaisrError(f"backend {s.backend!r} is not a backend of raisr_tpu_torch.")
+    with span("raisr.pass"):
+        if s.backend == "pallas":
+            # whole pass in one fused call: 4-phase for ratio-2 banks, else the
+            # single-phase form over a single-phase bank or the phase-0 rows of a
+            # 4-phase one (pass_banks; pass_statics refuses any other bank), at
+            # the statics' tier over the bank pass_banks prepared for it
+            return raisr_pass_full(
+                cheap,
+                bank.filters,
+                k1d=tuple(float(v) for v in gaussian_kernel_1d(s.patch_size)),
+                nf=normalization_factor(s.bits),
+                qstr=qstr,
+                qcoh=qcoh,
+                qangle=s.qangle,
+                qstrength=s.qstrength,
+                qcoherence=s.qcoherence,
+                patch_size=s.patch_size,
+                min_val=s.min_val,
+                max_val=s.max_val,
+                blending=int(s.blending),
+                exact_edges=s.exact_edges,
+                frame_h=frame_h,
+                frame_pad=frame_pad,
+                row0=row0,
+                zone_h=zone_h,
+                pixel_types=4 if s.use_pixel_type else 1,
+                tier=s.tier,
+                pbias=bank.pbias,
+                inv_scale=bank.inv_scale,
+            )
+        if s.backend not in ("taps", "conv"):
+            raise RaisrError(f"backend {s.backend!r} is not a backend of raisr_tpu_torch.")
 
-    gx, gy = hashing.gradients(cheap)
-    weights = gaussian_weights(s.patch_size, s.bits)
-    a, b, d = hashing.structure_tensor(gx, gy, weights)
-    buckets = hashing.hash_buckets(
-        a, b, d, qstr, qcoh, s.qangle, s.qstrength, s.qcoherence
-    )
-    if s.backend == "conv":
-        if s.use_pixel_type:
-            raw = apply_filters_conv(cheap, buckets, bank.filters, s.patch_size,
-                                     s.pixel_types, s.patch_margin, s.ratio_int)
-        else:
-            # every pixel is phase 0 (the taps path's row bucket *
-            # pixel_types + 0): one conv over the bank's phase-0 rows
-            raw = apply_filters_conv(cheap, buckets, bank.filters[0::s.pixel_types],
-                                     s.patch_size, 1, s.patch_margin, 1)
-    else:
-        ptype = hashing.pixel_types(
-            h, w, s.ratio_int, s.patch_margin, s.use_pixel_type, device=cheap.device,
-            row0=row0,
+        gx, gy = hashing.gradients(cheap)
+        weights = gaussian_weights(s.patch_size, s.bits)
+        a, b, d = hashing.structure_tensor(gx, gy, weights)
+        buckets = hashing.hash_buckets(
+            a, b, d, qstr, qcoh, s.qangle, s.qstrength, s.qcoherence
         )
-        raw = apply_filters_taps(cheap, buckets * s.pixel_types + ptype, bank.filters,
-                                 s.patch_size)
-    return _finish_pass(
-        cheap, raw,
-        min_val=s.min_val, max_val=s.max_val, blending=int(s.blending),
-        loop_margin=s.loop_margin,
-        col_end=processed_col_end(w, s.loop_margin, s.exact_edges),
-        frame_h=frame_h, frame_pad=frame_pad, row0=row0, zone_h=zone_h,
-    )
+        if s.backend == "conv":
+            if s.use_pixel_type:
+                raw = apply_filters_conv(cheap, buckets, bank.filters, s.patch_size,
+                                         s.pixel_types, s.patch_margin, s.ratio_int)
+            else:
+                # every pixel is phase 0 (the taps path's row bucket *
+                # pixel_types + 0): one conv over the bank's phase-0 rows
+                raw = apply_filters_conv(cheap, buckets, bank.filters[0::s.pixel_types],
+                                         s.patch_size, 1, s.patch_margin, 1)
+        else:
+            ptype = hashing.pixel_types(
+                h, w, s.ratio_int, s.patch_margin, s.use_pixel_type, device=cheap.device,
+                row0=row0,
+            )
+            raw = apply_filters_taps(cheap, buckets * s.pixel_types + ptype, bank.filters,
+                                     s.patch_size)
+        return _finish_pass(
+            cheap, raw,
+            min_val=s.min_val, max_val=s.max_val, blending=int(s.blending),
+            loop_margin=s.loop_margin,
+            col_end=processed_col_end(w, s.loop_margin, s.exact_edges),
+            frame_h=frame_h, frame_pad=frame_pad, row0=row0, zone_h=zone_h,
+        )
 
 
 def _fused_tier(cfg: RaisrConfig, single_phase: bool) -> str:
@@ -308,8 +310,9 @@ def process_plane_y(
     x = lr.to(torch.float32)
     for pass_idx in range(passes):
         if pass_idx + 1 == two_pass_mode:
-            cheap = cheap_upscale(x, out_h, out_w, statics.bits,
-                                  mode=statics.resize_mode)
+            with span("raisr.glue"):
+                cheap = cheap_upscale(x, out_h, out_w, statics.bits,
+                                      mode=statics.resize_mode)
         else:
             cheap = x
         x = raisr_pass(cheap, bank_filters[pass_idx], statics, pass_idx)
@@ -375,7 +378,8 @@ def process_plane_y_batch(
             # the per-frame one; at other ratios per-frame row vectors are
             # tiled over the stack, so frame rows equal it exactly
             oh, ow = (out_h, out_w) if upscale else (h, w)
-            cheap = cheap_upscale_stack(x, n, h, lr_pad, oh, ow, s.bits)
+            with span("raisr.glue"):
+                cheap = cheap_upscale_stack(x, n, h, lr_pad, oh, ow, s.bits)
             if upscale:
                 cur_fh, cur_pad = out_h, lr_pad * out_h // h
         else:

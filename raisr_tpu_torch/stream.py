@@ -14,9 +14,9 @@ float32 pipeline's.
 On a CUDA engine a dispatch owns its host buffers: the group's frames are
 staged into page-locked (pinned) tensors and copied with non_blocking=True,
 the outputs are copied into fresh pinned tensors, and a CUDA event recorded
-behind those copies marks the dispatch done. `_materialize` waits on that
-event, never on the device, and hands out numpy views of the dispatch's own
-output tensors. The pinned tensors come from PyTorch's caching host
+behind those copies marks the dispatch done. `_wait` waits on that event,
+never on the device, and hands out numpy views of the dispatch's own output
+tensors. The pinned tensors come from PyTorch's caching host
 allocator, which hands a block out again only when nothing refers to it and
 the copy that last used it has finished on the device, so a slot can be
 neither refilled under a copy in flight nor overwritten while a caller still
@@ -27,7 +27,7 @@ Only pinned memory makes a copy asynchronous; from or to pageable memory
 The copies in run on one side stream and the copies out on another, so group
 k+1's frames arrive and group k-1's leave while group k's kernels run on the
 current stream; each copy is ordered against the step by `wait_stream`, and
-a dispatch keeps its device tensors until it is materialised (its event is
+a dispatch keeps its device tensors until it is waited on (its event is
 behind every use of them on any stream), so the caching device allocator
 cannot hand their memory out again while another stream still uses it. With
 everything on one stream the host's staging and read-back would still
@@ -87,7 +87,12 @@ class StreamProcessor:
 
     On a CUDA engine the yielded planes are views of page-locked memory that
     stays locked for as long as the caller keeps them; copy a frame that is
-    to be kept for long."""
+    to be kept for long.
+
+    `tracer`'s stages, each also the span `raisr.stream.<stage>` under a
+    torch.profiler: "dispatch" a group (holding "stage", the group's staging
+    and copies in), and "wait" a group (its event and the numpy views; the
+    time the caller holds the frames is in no stage)."""
 
     def __init__(self, engine: RaisrEngine, depth: int = 2, batch: int = 1,
                  tracer: Optional[Tracer] = None):
@@ -103,20 +108,19 @@ class StreamProcessor:
             self._in = torch.cuda.Stream(engine.device)
             self._out = torch.cuda.Stream(engine.device)
 
-    def _materialize(self, inflight: _InFlight) -> Iterator[Frame]:
-        if inflight.done is not None:
-            inflight.done.synchronize()
-            inflight.device_tensors = ()  # every stream is done with them
-        ys = inflight.y.numpy()
-        us = inflight.u.numpy() if inflight.u is not None else None
-        vs = inflight.v.numpy() if inflight.v is not None else None
-        for i in range(inflight.n_real):
-            self.tracer.count_frame()
-            yield Frame(
-                y=ys[i],
-                u=us[i] if us is not None else None,
-                v=vs[i] if vs is not None else None,
-            )
+    def _wait(self, inflight: _InFlight) -> list[Frame]:
+        """The dispatch's frames, once its event has passed: the stage
+        "wait", which ends before the caller is handed a frame."""
+        with self.tracer.stage("wait"):
+            if inflight.done is not None:
+                inflight.done.synchronize()
+                inflight.device_tensors = ()  # every stream is done with them
+            ys = inflight.y.numpy()
+            us = inflight.u.numpy() if inflight.u is not None else None
+            vs = inflight.v.numpy() if inflight.v is not None else None
+            return [Frame(y=ys[i], u=us[i] if us is not None else None,
+                          v=vs[i] if vs is not None else None)
+                    for i in range(inflight.n_real)]
 
     def _stage(self, planes: list[np.ndarray]) -> torch.Tensor:
         """The group's planes as one [N, H, W] tensor on the engine's device.
@@ -162,13 +166,15 @@ class StreamProcessor:
     def _dispatch_stack(self, group: list[Frame], pad_to: int, step=None) -> _InFlight:
         """One device-step dispatch over a stack of frames; short tail
         groups are padded by repeating the last frame (one launch shape for
-        the whole clip) and sliced on materialize. `step` is the engine's
-        `process_batch_device` unless given."""
+        the whole clip) and sliced when waited on. `step` is the engine's
+        `process_batch_device` unless given. The staging and the copies in
+        are the stage "stage"."""
         n_real = len(group)
         group = group + [group[-1]] * (pad_to - n_real)
-        ys = self._stage([f.y for f in group])
-        us = self._stage([f.u for f in group]) if group[0].u is not None else None
-        vs = self._stage([f.v for f in group]) if group[0].v is not None else None
+        with self.tracer.stage("stage"):
+            ys = self._stage([f.y for f in group])
+            us = self._stage([f.u for f in group]) if group[0].u is not None else None
+            vs = self._stage([f.v for f in group]) if group[0].v is not None else None
         main = torch.cuda.current_stream(self.engine.device) if self._cuda else None
         if self._in is not None:
             main.wait_stream(self._in)  # the step starts behind its frames
@@ -199,14 +205,12 @@ class StreamProcessor:
                         queue.append(self._dispatch_stack(group, self.batch))
                     group = []
                 while len(queue) > self.depth:
-                    with self.tracer.stage("materialize"):
-                        yield from self._materialize(queue.popleft())
+                    yield from self._wait(queue.popleft())
             if group:
                 with self.tracer.stage("dispatch"):
                     queue.append(self._dispatch_stack(group, self.batch))
             while queue:
-                with self.tracer.stage("materialize"):
-                    yield from self._materialize(queue.popleft())
+                yield from self._wait(queue.popleft())
         finally:
             # a caller that stops early, or an error, leaves dispatches in
             # flight: their tensors may go back to the allocators only once
