@@ -706,9 +706,11 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
     patchwork plane); the staged pass (apply_filters, then the plain
     epilogue) against the fused pass; the refusal of a bank over shared
     memory; launch B alone (pass_epilogue) against the plain epilogue and its
-    times; then times that split launch A into hash and gather, on smooth
-    and patchwork content. `b_launches`: launch B's count on the main path.
-    Returns four `kernels` rows."""
+    times; launch A1 alone (hash_buckets) against the plain hash, byte for
+    byte, timed on the 4K plane and both stacks beside its count of interior
+    and edge tiles (HASH_TILES); then times that split launch A into hash
+    and gather, on smooth and patchwork content. `b_launches`: launch B's
+    count on the main path. Returns four `kernels` rows."""
     import torch
 
     from raisr_tpu_torch.ops import pipeline
@@ -872,6 +874,22 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
     a1 = bound(nbytes(cheap), cheap.numel(), cheap.numel() * HASH_OPS, "float32")
     print(f"phase 10 launch A1's bound on the plane: {a1['bound_ms']:.4f} ms ({a1['bound_by']}: "
           f"{HASH_OPS} float operations a pixel, the plane in and a byte a pixel out)")
+    # A1 alone: the bucket plane against the plain hash, its time, and the
+    # tiles that took the interior path (no bounds tests)
+    for name, x, want, hk in (("plane", cheap, buckets, hkw),
+                              ("2x stack", stack, buckets_stack, hkw),
+                              ("1.5x stack", stack15, buckets15, hkw15)):
+        zero(flk.HASH_TILES)
+        got = flk.hash_buckets(x, **hk)
+        tiles = dict(flk.HASH_TILES)
+        if tiles != dict(zip(("interior", "edge"), flk.hash_tile_counts(*x.shape))):
+            raise SystemExit(f"phase 10 failed: A1's tile count on the {name}: {tiles}")
+        errsh.append(hold("10 hash_buckets (A1 alone)", f"the {name} {tuple(x.shape)}", got,
+                          want.to(torch.uint8)))
+        ms = cuda_ms(lambda: flk.hash_buckets(x, **hk), 20, 3)
+        share = tiles["interior"] / (tiles["interior"] + tiles["edge"])
+        print(f"phase 10 A1 alone on {card}, {name} {tuple(x.shape)}: {ms:.4f} ms; tiles "
+              f"{tiles['interior']} interior, {tiles['edge']} edge ({100 * share:.2f}% interior)")
     for name, x in (("plane", cheap), ("patchwork", patch), ("stack", stack)):
         r = t[name]
         print(f"phase 10 times on {card}, {name} {tuple(x.shape)}: plain hash "

@@ -52,8 +52,9 @@
 // int8 tier) on the natural [H, W] plane. A pass is three CUDA launches on
 // one stream, counted as one pass by the wrapper; launch A, the hash and the
 // filter, is two of them:
-//   A1 (hash_bucket_kernel): one block per 32x32 output tile stages the cheap
-//     tile with a 6-pixel halo in shared memory (zero outside the plane),
+//   A1 (hash_bucket_kernel<kVec, kSym>): persistent blocks walk over 32x54
+//     output tiles, each staged with a 6-pixel halo in shared memory (zero
+//     outside the plane) while the block works on the one before; a block
 //     builds the gradient products and the vertical then horizontal tensor
 //     sums, hashes, and writes each pixel's bucket as one byte.
 //   A2 (gather_resident_kernel<kPhases, kTier, Bucket>): persistent blocks,
@@ -102,9 +103,33 @@
 //     would also build the gradient products of every pixel four times and
 //     the vertical sums twice. So launch A is split: A1 hashes every pixel
 //     once and hands A2 a byte a pixel (8.3 MB a 4K plane, written once and
-//     read once). A1 runs its sums down a column and along a row with each
-//     product feeding the live sums of its taps, so few values stay live and
-//     four blocks fit on an SM to hide the hash's latency.
+//     read once).
+//   - A1 is bound by the issue of its instructions, ~300 a pixel: ~120 for
+//     the hash (three IEEE square roots and two divisions, each a range
+//     check, a fast sequence and a branch around its slow path), ~100 for
+//     the vertical sums (64 tensor-window columns for 54 output columns; a
+//     segment builds 18 product rows for its 8 sums), ~63 for the
+//     horizontal ones, a few for the copies. Integer, compare and select
+//     instructions issue at half the rate of float ones on an H100, so the
+//     hash counts for more than its length; a hash with its own range tests
+//     in place of the branches, or two pixels a thread, measured slower.
+//     The 32x54 tile and 256 threads keep every thread busy in each phase:
+//     64 columns x 4 segments of 8 rows are the 256 vertical tasks, and 32
+//     rows x 8 warps of 7 or 6 columns the horizontal ones; the hash takes
+//     the tile's pixels in row-major order and writes each bucket to the
+//     plane at once, coalesced. A tile whose window lies inside the plane
+//     (96.5% of them on a 2x stack) runs with no bounds tests: no gradient
+//     border rule and no zero padding can reach it; the others keep the
+//     tests. The taps of the Gaussian are symmetric bit for bit, so a
+//     product with tap t serves tap 10 - t as well (the same value, so
+//     every sum still adds taps 0..10 in order); a non-symmetric k1d takes
+//     the general form. The sums run down a column and along a row with
+//     each product feeding the live sums of its taps, so few values stay
+//     live: 48 registers, and with one staging buffer (37,632 bytes) five
+//     blocks share an SM, where four (64 registers, two buffers) were
+//     slower. A block copies its next tile's window with cp.async (16 bytes
+//     a copy where every row of the plane starts on 16 bytes) once the
+//     current window is read, during the rest of the tile.
 //   - A2's blocks: 4 groups of 256 threads (1024 threads), one tile of 16 x 32
 //     same-phase pixels a group at a time; the groups sync on their own named
 //     barriers, so one group waits while the others compute, and each group
@@ -125,6 +150,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <limits>
 
 #include "raisr_common.cuh"
 
@@ -145,21 +171,59 @@ template <> struct TierTypes<Tier::kBF16> { using Bank = __nv_bfloat16; };
 template <> struct TierTypes<Tier::kPCenter> { using Bank = __nv_bfloat16; };
 template <> struct TierTypes<Tier::kInt8> { using Bank = int16_t; };
 
+// -- cp.async ------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// 4 bytes, or 4 zero bytes where !valid
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 4 : 0));
+}
+
 // -- A1: the hash ------------------------------------------------------------
 
-// A1's tile: 32 x 32 output pixels a block of 256 threads
-constexpr int kHashTile = 32;
+// A1's tile: 32 x 54 output pixels, a block of 256 threads
+constexpr int kHashRows = 32;
+constexpr int kHashCols = 54;
 constexpr int kHashThreads = 256;
-// cheap tile: the tensor window plus one more for the gradient stencil
-constexpr int kHImg = kHashTile + 2 * kMargin + 2;  // 44
-// gradient products: the tensor window around every tile pixel
-constexpr int kHGp = kHashTile + 2 * kMargin;  // 42
-// vertical sums a thread computes down one column
+// the staged cheap window reaches kHalo past the tile: the tensor window's 5
+// and the gradient stencil's 1
+constexpr int kHalo = kMargin + 1;              // 6
+constexpr int kInRows = kHashRows + 2 * kHalo;  // 44
+constexpr int kInCols = kHashCols + 2 * kHalo;  // 66
+// a staged row: window column c at word off + c, where off (0..3) puts the
+// plane's multiples of 4 columns on multiples of 4 words, so 16-byte copies
+// land whole
+constexpr int kInStride = 72;
+constexpr int kInGroups = kInStride / 4;  // 18 groups of 16 bytes a row
+constexpr int kInWords = kInRows * kInStride;
+// the tensor window's columns around the tile: 64, one vertical task each
+// for each segment of kSeg tile rows
+constexpr int kVCols = kHashCols + 2 * kMargin;
 constexpr int kSeg = 8;
 // row stride of the vertical sums: odd, so 32 lanes on 32 rows read 32 banks
-constexpr int kVStride = kHGp + 1;  // 43
-// horizontal sums a thread computes along one row
-constexpr int kRun = kHashTile / (kHashThreads / 32);  // 4
+constexpr int kVStride = kVCols + 1;  // 65
+// horizontal sums: warp g takes tile columns 7g .. 7g+6 (g < 6) or
+// 42 + 6(g-6) .. +5 (g = 6, 7), all 32 rows a lane each
+constexpr int kRunLong = 7;
+constexpr int kLongWarps = 6;
+constexpr int kRunShort = 6;
+// the tensor (a, b, d) of every tile pixel, stored over the vertical sums
+// once they are read: row stride odd, so the lanes on 32 rows write 32 banks
+constexpr int kTStride = kHashCols + 1;  // 55
+constexpr int kTWords = kHashRows * kTStride;
+// dynamic shared memory: the staged window, then the vertical sums
+constexpr int kHashSmemBytes = (kInWords + 3 * kHashRows * kVStride) * 4;  // 37,632
+static_assert(kVCols * (kHashRows / kSeg) == kHashThreads, "one vertical task a thread");
+static_assert(kLongWarps * kRunLong + (kHashThreads / 32 - kLongWarps) * kRunShort == kHashCols,
+              "the warps' runs cover the tile's columns");
+static_assert(kInStride % 4 == 0 && kInStride >= kInCols + 3, "room for the 16-byte shift");
+static_assert(3 * kTWords <= 3 * kHashRows * kVStride, "the tensor fits over the vertical sums");
 
 constexpr float kPi = static_cast<float>(3.141592653589793);
 constexpr float kQuarterPi = static_cast<float>(3.141592653589793 / 4.0);
@@ -191,14 +255,22 @@ struct EpilogueParams {
 __device__ __forceinline__ float atan2_approx(float y, float x) {
   const float abs_y = fabsf(y) + 1e-10f;
   const bool neg_x = x < 0.0f;
-  const float r = neg_x ? (x + abs_y) / (abs_y - x) : (x - abs_y) / (x + abs_y);
+  // the operands of the branch taken, then one division
+  const float num = neg_x ? x + abs_y : x - abs_y;
+  const float den = neg_x ? abs_y - x : x + abs_y;
+  const float r = num / den;
   float angle = neg_x ? kThreeQuarterPi : kQuarterPi;
   angle = angle + (0.1963f * r * r - 0.9817f) * r;
   return y < 0.0f ? -angle : angle;
 }
 
-__device__ __forceinline__ int hash_bucket(float a, float b, float d,
-                                           const HashParams& hp) {
+// A pixel's bucket from its tensor (a, b, d). The edges are counted over
+// kEdges of them: the host pads qstr and qcoh past n_qstr and n_qcoh with
+// NaN, which no value reaches, so kEdges may be any count >= n; the launch
+// takes 2, the usual 3 x 3 grid's, where it can, so that the counts are a
+// few comparisons and no branch.
+template <int kEdges>
+__device__ __forceinline__ int hash_bucket(float a, float b, float d, const HashParams& hp) {
   const float t = a + d;
   const float det = a * d - b * b;
   const float sqr = sqrtf(fmaxf(t * t * 0.25f - det, 0.0f));
@@ -214,111 +286,214 @@ __device__ __forceinline__ int hash_bucket(float a, float b, float d,
   int ai = static_cast<int>(floorf(angle * hp.angle_scale));
   ai = min(max(ai, 0), hp.qangle - 1);
   int si = 0;
-  for (int e = 0; e < hp.n_qstr; ++e) si += hp.qstr[e] <= l1 ? 1 : 0;
   int ci = 0;
-  for (int e = 0; e < hp.n_qcoh; ++e) ci += hp.qcoh[e] <= coh ? 1 : 0;
+#pragma unroll
+  for (int e = 0; e < kEdges; ++e) {
+    si += hp.qstr[e] <= l1 ? 1 : 0;
+    ci += hp.qcoh[e] <= coh ? 1 : 0;
+  }
   return ai * (hp.qstrength * hp.qcoherence) + si * hp.qcoherence + ci;
 }
 
-// Every pixel's bucket, one byte each (the wrapper holds the bucket count
-// at 256 or below). The block stages the cheap tile with its 6-pixel halo;
-// each of 168 threads walks 18 rows down one column of the tensor window,
-// building the gradient products in registers, and writes 8 vertical sums;
-// each thread then slides along 4 pixels of one row (lanes on 32 rows)
-// for the horizontal sums and hashes them. Every sum keeps the plain
-// version's order of taps; the buckets leave through shared memory, so the
-// block writes them row by row.
-__global__ void __launch_bounds__(kHashThreads, 4)
-hash_bucket_kernel(const float* __restrict__ cheap, uint8_t* __restrict__ buckets,
-                   int h, int w, HashParams hp) {
-  __shared__ float s_img[kHImg][kHImg];
-  __shared__ float s_v[3][kHashTile][kVStride];
-  __shared__ uint8_t s_b[kHashTile][kHashTile];
+// A tile is interior when its staged window lies inside the plane: then
+// every gradient it builds is off the border rows and columns (where gx or
+// gy is zero) and inside the plane (where the products are not zero), and
+// every output pixel is in the plane. ops/cuda/filter_kernel.py
+// hash_tile_counts counts the same tiles.
+__device__ __forceinline__ bool hash_interior(int y0, int x0, int h, int w) {
+  return y0 >= kHalo && x0 >= kHalo && y0 + kHashRows + kHalo <= h &&
+         x0 + kHashCols + kHalo <= w;
+}
 
-  const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * kHashTile;
-  const int y0 = blockIdx.y * kHashTile;
-
-  // cheap rows y0-6 .. y0+37, cols x0-6 .. x0+37; zero outside the plane
-  for (int k = tid; k < kHImg * kHImg; k += kHashThreads) {
-    const int i = k / kHImg;
-    const int j = k % kHImg;
-    const int gr = y0 - kMargin - 1 + i;
-    const int gc = x0 - kMargin - 1 + j;
-    s_img[i][j] = (gr >= 0 && gr < h && gc >= 0 && gc < w)
-                      ? cheap[static_cast<size_t>(gr) * w + gc]
-                      : 0.0f;
-  }
-  __syncthreads();
-
-  // vertical tensor sums: column j of the window (plane column x0-5+j),
-  // rows kSeg*s .. kSeg*s+7 of the tile, taps in order 0..10 over the
-  // gradient products of window rows kSeg*s .. kSeg*s+17. The gradients are
-  // zero on the plane's border rows (gx) and columns (gy), and the products
-  // are zero outside the plane.
-  // Each product row i feeds the sums of rows i-10 .. i as their tap
-  // i - o, so every sum still adds its taps in order 0..10 while only the
-  // 3 x 8 sums stay live.
-  for (int task = tid; task < kHGp * (kHashTile / kSeg); task += kHashThreads) {
-    const int j = task % kHGp;
-    const int s = task / kHGp;
-    const int gc = x0 - kMargin + j;
-    float acc[3][kSeg];
-#pragma unroll
-    for (int i = 0; i < kSeg + kPatch - 1; ++i) {
-      const int gi = kSeg * s + i;
-      const int gr = y0 - kMargin + gi;
-      float gx = 0.0f;
-      float gy = 0.0f;
-      if (gr >= 0 && gr < h && gc >= 0 && gc < w) {
-        if (gr >= 1 && gr <= h - 2) gx = s_img[gi + 2][j + 1] - s_img[gi][j + 1];
-        if (gc >= 1 && gc <= w - 2) gy = s_img[gi + 1][j + 2] - s_img[gi + 1][j];
+// Copies tile (y0, x0)'s window into `dst` with cp.async: window row i,
+// column c (plane row y0 - 6 + i, column x0 - 6 + c) to word
+// i * kInStride + off + c, zero outside the plane. An interior tile on a
+// plane whose rows all start on 16 bytes (kVec) copies the 16-byte groups
+// that hold its window, a superset of it; any other tile, word by word.
+template <bool kVec>
+__device__ __forceinline__ void hash_stage(const float* __restrict__ cheap, float* dst, int y0,
+                                           int x0, int off, bool interior, int h, int w) {
+  const int top = y0 - kHalo;
+  if (kVec && interior) {
+    const int groups = (off + kInCols + 3) / 4;  // 17 or 18
+    const float* src = cheap + static_cast<size_t>(top) * w + (x0 - kHalo - off);
+    for (unsigned k = threadIdx.x; k < kInRows * kInGroups; k += kHashThreads) {
+      const int i = static_cast<int>(k / kInGroups);
+      const int g = static_cast<int>(k % kInGroups);
+      if (g < groups) {
+        cp_async16(dst + i * kInStride + 4 * g, src + static_cast<size_t>(i) * w + 4 * g);
       }
-      const float p[3] = {gx * gx, gx * gy, gy * gy};
+    }
+  } else {
+    for (unsigned k = threadIdx.x; k < kInRows * kInCols; k += kHashThreads) {
+      const int i = static_cast<int>(k / kInCols);
+      const int c = static_cast<int>(k % kInCols);
+      const int gr = top + i;
+      const int gc = x0 - kHalo + c;
+      const bool valid = interior || (gr >= 0 && gr < h && gc >= 0 && gc < w);
+      cp_async4_zfill(dst + i * kInStride + off + c,
+                      valid ? cheap + static_cast<size_t>(gr) * w + gc : cheap, valid);
+    }
+  }
+}
+
+// The vertical tensor sums of tensor-window column j (plane column
+// x0 - 5 + j), tile rows kSeg*s .. kSeg*s + 7, into s_v. `img` is the
+// tile's window from its word `off`. Product row i (plane row
+// y0 - 5 + kSeg*s + i) feeds the sums of tile rows kSeg*s + i - 10 ..
+// kSeg*s + i as their tap i - o, so every sum still adds its taps in order
+// 0..10 while only the 3 x 8 sums stay live. kEdge: the gradients are zero
+// on the plane's border rows (gx) and columns (gy), and the products zero
+// outside the plane; an interior tile tests nothing. kSym (k1d[t] ==
+// k1d[10-t] bit for bit): a product with tap t serves tap 10 - t too.
+template <bool kEdge, bool kSym>
+__device__ __forceinline__ void hash_vertical(const float* img, float* s_v, int j, int s,
+                                              int y0, int x0, int h, int w,
+                                              const HashParams& hp) {
+  const float* p0 = img + (kSeg * s + 1) * kInStride + j + 1;
+  const int gc = x0 - kMargin + j;
+  const bool col_in = gc >= 0 && gc < w;
+  const bool gy_in = gc >= 1 && gc <= w - 2;
+  float acc[3][kSeg];
+#pragma unroll
+  for (int i = 0; i < kSeg + kPatch - 1; ++i) {
+    const float* p = p0 + i * kInStride;
+    float gx = p[kInStride] - p[-kInStride];
+    float gy = p[1] - p[-1];
+    if (kEdge) {
+      const int gr = y0 - kMargin + kSeg * s + i;
+      const bool in = col_in && gr >= 0 && gr < h;
+      gx = in && gr >= 1 && gr <= h - 2 ? gx : 0.0f;
+      gy = in && gy_in ? gy : 0.0f;
+    }
+    const float pm[3] = {gx * gx, gx * gy, gy * gy};
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      float q[kPatch];  // pm[m] * k1d[t]; the compiler keeps the ones used
+#pragma unroll
+      for (int t = 0; t < kPatch; ++t) {
+        q[t] = kSym && t > kMargin ? q[kPatch - 1 - t] : pm[m] * hp.k1d[t];
+      }
 #pragma unroll
       for (int o = 0; o < kSeg; ++o) {
-        if (o > i || i - o >= kPatch) continue;
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          acc[m][o] = o == i ? p[m] * hp.k1d[0] : acc[m][o] + p[m] * hp.k1d[i - o];
-        }
-        if (i - o == kPatch - 1) {
-#pragma unroll
-          for (int m = 0; m < 3; ++m) s_v[m][kSeg * s + o][j] = acc[m][o];
-        }
+        const int t = i - o;
+        if (t < 0 || t >= kPatch) continue;
+        acc[m][o] = t == 0 ? q[0] : acc[m][o] + q[t];
+        if (t == kPatch - 1) s_v[(m * kHashRows + kSeg * s + o) * kVStride + j] = acc[m][o];
       }
     }
   }
-  __syncthreads();
+}
 
-  // horizontal sums of tile row `row`, columns c0 .. c0+3, then * nf
-  const int row = tid % 32;
-  const int c0 = (tid / 32) * kRun;
-  float st[kRun][3];
+// Tile row `row`, columns c0 .. c0 + kR - 1: the horizontal sums over the
+// vertical ones (vertical column c0 + q is tap q - e of column c0 + e), then
+// * nf, into st[e][0..2].
+template <int kR, bool kSym>
+__device__ __forceinline__ void hash_sums(const float* s_v, int row, int c0,
+                                          float (&st)[kRunLong][3], const HashParams& hp) {
 #pragma unroll
   for (int m = 0; m < 3; ++m) {
+    const float* v = s_v + (m * kHashRows + row) * kVStride + c0;
 #pragma unroll
-    for (int q = 0; q < kRun + kPatch - 1; ++q) {
-      const float v = s_v[m][row][c0 + q];
+    for (int qq = 0; qq < kR + kPatch - 1; ++qq) {
+      const float x = v[qq];
+      float q[kPatch];
 #pragma unroll
-      for (int e = 0; e < kRun; ++e) {
-        if (e > q || q - e >= kPatch) continue;
-        st[e][m] = e == q ? v * hp.k1d[0] : st[e][m] + v * hp.k1d[q - e];
+      for (int t = 0; t < kPatch; ++t) {
+        q[t] = kSym && t > kMargin ? q[kPatch - 1 - t] : x * hp.k1d[t];
+      }
+#pragma unroll
+      for (int e = 0; e < kR; ++e) {
+        const int t = qq - e;
+        if (t < 0 || t >= kPatch) continue;
+        st[e][m] = t == 0 ? q[0] : st[e][m] + q[t];
       }
     }
 #pragma unroll
-    for (int e = 0; e < kRun; ++e) st[e][m] = st[e][m] * hp.nf;
+    for (int e = 0; e < kR; ++e) st[e][m] = st[e][m] * hp.nf;
   }
+}
+
+// Every pixel's bucket, one byte each (the wrapper holds the bucket count
+// at 256 or below). Persistent: block b takes tiles b, b + gridDim.x, ...
+// (row-major over the plane's 32 x 54 tiles); once a tile's vertical sums
+// are built its window is free, and the block copies the next tile's window
+// into it with cp.async during the rest of the tile (one buffer, so that
+// five blocks fit on an SM). A tile is three phases, every thread busy in
+// each: the 256 vertical tasks (64 columns x 4 segments of 8 rows); the
+// horizontal sums (a lane a row, a warp 7 or 6 columns), whose tensor goes
+// to shared memory; the hash, a pixel a thread at a time in row-major
+// order, each bucket written to the plane at once (a warp writes 32
+// consecutive bytes). Every sum keeps the plain version's order of taps. kVec: every row of the
+// plane starts on 16 bytes (w % 4 == 0, an aligned plane), so interior
+// tiles stage in 16-byte copies; kSym: the host found k1d symmetric bit for
+// bit; kEdges: the edges hash_bucket counts.
+template <bool kVec, bool kSym, int kEdges>
+__global__ void __launch_bounds__(kHashThreads, 5)
+hash_bucket_kernel(const float* __restrict__ cheap, uint8_t* __restrict__ buckets,
+                   int h, int w, HashParams hp) {
+  extern __shared__ __align__(16) float hash_smem[];
+  float* s_v = hash_smem + kInWords;
+  float* s_t = s_v;  // [3][kHashRows][kTStride], once s_v is read
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int tiles_x = (w + kHashCols - 1) / kHashCols;
+  const int n_tiles = tiles_x * ((h + kHashRows - 1) / kHashRows);
+
+  auto stage = [&](int t) {
+    const int y0 = t / tiles_x * kHashRows;
+    const int x0 = t % tiles_x * kHashCols;
+    hash_stage<kVec>(cheap, hash_smem, y0, x0, (x0 - kHalo) & 3, hash_interior(y0, x0, h, w),
+                     h, w);
+  };
+  if (blockIdx.x < n_tiles) stage(blockIdx.x);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // tile t is staged; the last tile's hash is done with s_t
+
+    const int y0 = t / tiles_x * kHashRows;
+    const int x0 = t % tiles_x * kHashCols;
+    const bool interior = hash_interior(y0, x0, h, w);  // the same for the whole block
+    const float* img = hash_smem + ((x0 - kHalo) & 3);
+    if (interior) {
+      hash_vertical<false, kSym>(img, s_v, tid % kVCols, tid / kVCols, y0, x0, h, w, hp);
+    } else {
+      hash_vertical<true, kSym>(img, s_v, tid % kVCols, tid / kVCols, y0, x0, h, w, hp);
+    }
+    __syncthreads();  // the vertical sums are built, and the window is read
+    if (t + gridDim.x < n_tiles) stage(t + gridDim.x);  // in flight during the rest of tile t
+    asm volatile("cp.async.commit_group;\n" ::);
+
+    const int row = tid % 32;
+    const bool long_run = warp < kLongWarps;
+    const int c0 = long_run ? kRunLong * warp
+                            : kRunLong * kLongWarps + kRunShort * (warp - kLongWarps);
+    float st[kRunLong][3];
+    if (long_run) {
+      hash_sums<kRunLong, kSym>(s_v, row, c0, st, hp);
+    } else {
+      hash_sums<kRunShort, kSym>(s_v, row, c0, st, hp);
+    }
+    __syncthreads();  // every vertical sum is read
 #pragma unroll
-  for (int e = 0; e < kRun; ++e) {
-    s_b[row][c0 + e] = static_cast<uint8_t>(hash_bucket(st[e][0], st[e][1], st[e][2], hp));
-  }
-  __syncthreads();
-  for (int k = tid; k < kHashTile * kHashTile; k += kHashThreads) {
-    const int r = y0 + k / kHashTile;
-    const int c = x0 + k % kHashTile;
-    if (r < h && c < w) {
-      buckets[static_cast<size_t>(r) * w + c] = s_b[k / kHashTile][k % kHashTile];
+    for (int e = 0; e < kRunLong; ++e) {
+      if (e >= kRunShort && !long_run) continue;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) s_t[m * kTWords + row * kTStride + c0 + e] = st[e][m];
+    }
+    __syncthreads();  // the tile's tensor is stored
+
+    // the tile's pixels in row-major order: consecutive lanes read
+    // consecutive words and write consecutive bytes
+    uint8_t* const out = buckets + static_cast<size_t>(y0) * w + x0;
+#pragma unroll 1
+    for (unsigned k = tid; k < kHashRows * kHashCols; k += kHashThreads) {
+      const int r = static_cast<int>(k / kHashCols);
+      const int c = static_cast<int>(k % kHashCols);
+      const float* v = s_t + r * kTStride + c;
+      const int bucket = hash_bucket<kEdges>(v[0], v[kTWords], v[2 * kTWords], hp);
+      if (interior || (y0 + r < h && x0 + c < w)) out[r * w + c] = static_cast<uint8_t>(bucket);
     }
   }
 }
@@ -366,18 +541,6 @@ struct GatherSmem {
            static_cast<size_t>(2 * kGroups) * TileShape<kStep>::kWords * 4;
   }
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-// 4 bytes, or 4 zero bytes where !valid
-__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 4 : 0));
-}
 
 // a barrier of one group's 256 threads (ids 1..kGroups; 0 is __syncthreads)
 __device__ __forceinline__ void group_sync(int group) {
@@ -780,7 +943,97 @@ cudaError_t launch_gather(const float* cheap, const Bucket* buckets, const void*
   return cudaGetLastError();
 }
 
+// The hash launch's parameters from the host arrays k1d[11], qstr[n_qstr],
+// qcoh[n_qcoh]; false (and nothing filled) where the kernel cannot take
+// them: more than kMaxEdges edges, an empty grid of buckets, more than 256
+// buckets (a pixel's bucket leaves A1 as one byte).
+bool hash_params(const float* k1d, float nf, const float* qstr, int n_qstr,
+                 const float* qcoh, int n_qcoh, int qangle, int qstrength, int qcoherence,
+                 float angle_scale, HashParams* hp) {
+  if (n_qstr < 0 || n_qstr > kMaxEdges || n_qcoh < 0 || n_qcoh > kMaxEdges || qangle <= 0 ||
+      qstrength <= 0 || qcoherence <= 0 || qangle * qstrength * qcoherence > 256) {
+    return false;
+  }
+  std::memset(hp, 0, sizeof(*hp));
+  std::memcpy(hp->k1d, k1d, sizeof(hp->k1d));
+  hp->nf = nf;
+  std::memcpy(hp->qstr, qstr, sizeof(float) * n_qstr);
+  std::memcpy(hp->qcoh, qcoh, sizeof(float) * n_qcoh);
+  hp->n_qstr = n_qstr;
+  hp->n_qcoh = n_qcoh;
+  hp->qangle = qangle;
+  hp->qstrength = qstrength;
+  hp->qcoherence = qcoherence;
+  hp->angle_scale = angle_scale;
+  // NaN, which no value reaches, for the edges hash_bucket counts past n
+  std::fill(hp->qstr + n_qstr, hp->qstr + kMaxEdges, std::numeric_limits<float>::quiet_NaN());
+  std::fill(hp->qcoh + n_qcoh, hp->qcoh + kMaxEdges, std::numeric_limits<float>::quiet_NaN());
+  return true;
+}
+
+// Launch A1: one persistent block per place the card has for one (five a
+// SM at 48 registers and 37,632 bytes), no more than the tiles. The form is
+// chosen from the input: 16-byte staging where every row of the plane starts
+// on 16 bytes, the shared products where the taps are symmetric bit for bit,
+// two edge comparisons where the bank has at most two edges of each kind.
+cudaError_t launch_hash(const float* cheap, uint8_t* buckets, int h, int w,
+                        const HashParams& hp, int device, cudaStream_t st) {
+  bool sym = true;
+  for (int t = 0; t < kMargin; ++t) {
+    sym = sym && std::memcmp(&hp.k1d[t], &hp.k1d[kPatch - 1 - t], sizeof(float)) == 0;
+  }
+  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(cheap) % 16 == 0;
+  const bool few = hp.n_qstr <= 2 && hp.n_qcoh <= 2;
+  using Kernel = void (*)(const float*, uint8_t*, int, int, HashParams);
+  // [vec][sym][few]
+  static const Kernel kForms[2][2][2] = {
+      {{&hash_bucket_kernel<false, false, kMaxEdges>, &hash_bucket_kernel<false, false, 2>},
+       {&hash_bucket_kernel<false, true, kMaxEdges>, &hash_bucket_kernel<false, true, 2>}},
+      {{&hash_bucket_kernel<true, false, kMaxEdges>, &hash_bucket_kernel<true, false, 2>},
+       {&hash_bucket_kernel<true, true, kMaxEdges>, &hash_bucket_kernel<true, true, 2>}}};
+  const Kernel kernel = kForms[vec][sym][few];
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kHashSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kHashThreads,
+                                                      kHashSmemBytes);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>((w + kHashCols - 1) / kHashCols) *
+                          ((h + kHashRows - 1) / kHashRows);
+  const long long blocks =
+      std::max(1LL, std::min<long long>(tiles, static_cast<long long>(sms) * std::max(per_sm, 1)));
+  kernel<<<static_cast<int>(blocks), kHashThreads, kHashSmemBytes, st>>>(cheap, buckets, h, w, hp);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Launch A1 alone: every pixel's bucket of the [h, w] float32 plane `cheap`
+// into `buckets` ([h, w] uint8), as the fused pass computes it. Host arrays
+// k1d[11], qstr[n_qstr], qcoh[n_qcoh]; at most 256 buckets. Returns a
+// cudaError_t value (0 on success).
+extern "C" int raisr_hash_buckets(const float* cheap, uint8_t* buckets, int h, int w,
+                                  const float* k1d, float nf, const float* qstr, int n_qstr,
+                                  const float* qcoh, int n_qcoh, int qangle, int qstrength,
+                                  int qcoherence, float angle_scale, int device, void* stream) {
+  HashParams hp;
+  if (h <= 0 || w <= 0 ||
+      !hash_params(k1d, nf, qstr, n_qstr, qcoh, n_qcoh, qangle, qstrength, qcoherence,
+                   angle_scale, &hp)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  return static_cast<int>(
+      launch_hash(cheap, buckets, h, w, hp, device, static_cast<cudaStream_t>(stream)));
+}
 
 // Launch A: A1 (the hash into `buckets`, [h, w] uint8 scratch) then A2 (the
 // gather into `raw`). Host arrays k1d[11], qstr[n_qstr], qcoh[n_qcoh] are
@@ -798,30 +1051,17 @@ extern "C" int raisr_full_hash_filter(
     void* stream) {
   const bool four = phases == 4;
   const int n_buckets = qangle * qstrength * qcoherence;
+  HashParams hp;
   if (h <= 0 || w <= 0 || (phases != 1 && !four) || tier < 0 || tier > 3 ||
-      (tier >= 2 && !four) || (tier == 2 && pbias == nullptr) || n_qstr < 0 ||
-      n_qstr > kMaxEdges || n_qcoh < 0 || n_qcoh > kMaxEdges || qangle <= 0 ||
-      qstrength <= 0 || qcoherence <= 0 || n_buckets > 256) {
+      (tier >= 2 && !four) || (tier == 2 && pbias == nullptr) ||
+      !hash_params(k1d, nf, qstr, n_qstr, qcoh, n_qcoh, qangle, qstrength, qcoherence,
+                   angle_scale, &hp)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
-  HashParams hp;
-  std::memset(&hp, 0, sizeof(hp));
-  std::memcpy(hp.k1d, k1d, sizeof(hp.k1d));
-  hp.nf = nf;
-  std::memcpy(hp.qstr, qstr, sizeof(float) * n_qstr);
-  std::memcpy(hp.qcoh, qcoh, sizeof(float) * n_qcoh);
-  hp.n_qstr = n_qstr;
-  hp.n_qcoh = n_qcoh;
-  hp.qangle = qangle;
-  hp.qstrength = qstrength;
-  hp.qcoherence = qcoherence;
-  hp.angle_scale = angle_scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((w + kHashTile - 1) / kHashTile, (h + kHashTile - 1) / kHashTile);
-  hash_bucket_kernel<<<grid, kHashThreads, 0, st>>>(cheap, buckets, h, w, hp);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_hash(cheap, buckets, h, w, hp, device, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   GatherLaunch<uint8_t> launch = nullptr;
   switch (static_cast<Tier>(tier)) {

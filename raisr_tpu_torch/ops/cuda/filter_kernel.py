@@ -14,6 +14,8 @@ csrc/full_kernel.cu:
     -> `apply_filters_hash`: launch A (hash_bucket_kernel, then
     gather_resident_kernel<4, Tier::kF32, uint8_t>), which the fused pass
     runs too.
+`hash_buckets` runs the hash launch A1 alone (a uint8 bucket plane), for
+the tests and the timings of the kernel; no serving path calls it.
 The TPU knobs (tb2, rowbatch, mxu_passes, interpret) have no meaning here and
 are gone: the card computes plain float32 at every bit depth, so the 10-bit
 case (mxu_passes=3 on the TPU) needs nothing extra.
@@ -21,7 +23,9 @@ case (mxu_passes=3 on the TPU) needs nothing extra.
 Each wrapper runs its kernel on a CUDA tensor and its plain version on a CPU
 tensor; there is no fallback. `LAUNCHES`, `SINGLE_LAUNCHES` and `HASH_LAUNCHES`
 count the calls that went through a kernel: apply_filters with 4 and with 1
-phase, and apply_filters_hash.
+phase, and apply_filters_hash. `HASH_TILES` counts the tiles of every A1
+launch (a fused pass, apply_filters_hash, hash_buckets) by the path they
+take: "interior" (no bounds tests) and "edge" (`hash_tile_counts`).
 """
 
 from __future__ import annotations
@@ -36,6 +40,11 @@ from raisr_tpu_torch.ops.filter_apply import apply_filters_taps
 LAUNCHES = 0  # apply_filters, 4 phases, through the gather launch
 SINGLE_LAUNCHES = 0  # apply_filters, 1 phase, through the gather launch
 HASH_LAUNCHES = 0  # apply_filters_hash, through launch A
+HASH_TILES = {"interior": 0, "edge": 0}  # A1's tiles by path, over every A1 launch
+
+# A1's output tile (csrc/full_kernel.cu kHashRows, kHashCols) and how far its
+# staged window reaches past it: the tensor window's 5 and the gradient's 1
+HASH_TILE_ROWS, HASH_TILE_COLS, HASH_HALO = 32, 54, 6
 
 FILTER_STRIDE = 128  # taps per bank row, zero-padded
 N_TAPS = 121
@@ -96,6 +105,26 @@ def check_gather_smem(n_buckets: int, pixel_types: int) -> None:
             f"{gather_smem_bytes(0, pixel_types)} bytes of tile buffers); the card gives "
             f"{MAX_SMEM_BYTES}"
         )
+
+
+def hash_tile_counts(h: int, w: int) -> tuple[int, int]:
+    """A1's (interior, edge) tiles over an [h, w] plane. A tile is interior
+    when its staged window (the tile and HASH_HALO rows and columns around
+    it) lies inside the plane: then it runs with no bounds tests
+    (csrc/full_kernel.cu hash_interior). Along an axis of n pixels and tile
+    t, that is the tiles k >= 1 with (k + 1) * t + HASH_HALO <= n."""
+    def inside(n: int, t: int) -> int:
+        return max(0, (n - t - HASH_HALO) // t)
+
+    tiles = -(-h // HASH_TILE_ROWS) * -(-w // HASH_TILE_COLS)
+    interior = inside(h, HASH_TILE_ROWS) * inside(w, HASH_TILE_COLS)
+    return interior, tiles - interior
+
+
+def _count_hash_tiles(h: int, w: int) -> None:
+    interior, edge = hash_tile_counts(h, w)
+    HASH_TILES["interior"] += interior
+    HASH_TILES["edge"] += edge
 
 
 def _check_phases(pixel_types: int, ratio: int | None = None) -> None:
@@ -248,9 +277,53 @@ def _launch_hash_filter(cheap, filters, raw, pixel_types, *, k1d, nf, qstr, qcoh
     )
     if err:
         raise RuntimeError(f"raisr_full_hash_filter launch failed: cudaError {err}")
+    _count_hash_tiles(h, w)
 
 
 # -- the wrappers -----------------------------------------------------------
+
+
+def hash_buckets(
+    cheap: torch.Tensor,  # [H, W] f32 (integer-valued)
+    *,
+    k1d,
+    nf: float,
+    qstr,
+    qcoh,
+    qangle: int = 24,
+    qstrength: int = 3,
+    qcoherence: int = 3,
+) -> torch.Tensor:
+    """The hash launch A1 alone: each pixel's bucket as a uint8 [H, W] plane,
+    the one a fused pass hands its gather. The CUDA kernel for a CUDA tensor,
+    hash_buckets_reference (as uint8) for a CPU tensor; the two agree byte
+    for byte. At most MAX_BUCKETS buckets and MAX_EDGES edges on every
+    device. No serving path calls it: it is how the tests and the timings
+    reach the kernel."""
+    _check_hash_args(k1d, qstr, qcoh, qangle, qstrength, qcoherence, 11)
+    kw = dict(k1d=k1d, nf=nf, qstr=qstr, qcoh=qcoh, qangle=qangle,
+              qstrength=qstrength, qcoherence=qcoherence)
+    if cheap.device.type == "cpu":
+        return hash_buckets_reference(cheap, **kw).to(torch.uint8)
+    if cheap.device.type != "cuda":
+        raise ValueError(f"hash_buckets runs on cpu or cuda, not {cheap.device}")
+    _check_plane(cheap)
+
+    from raisr_tpu_torch.ops.cuda._build import load_library
+
+    h, w = cheap.shape
+    out = torch.empty((h, w), dtype=torch.uint8, device=cheap.device)
+    dev, stream = _device_and_stream(cheap)
+    k1d_c, qstr_c, qcoh_c = _floats(k1d), _floats(qstr), _floats(qcoh)
+    err = load_library().raisr_hash_buckets(
+        cheap.data_ptr(), out.data_ptr(), h, w, ctypes.addressof(k1d_c), float(nf),
+        ctypes.addressof(qstr_c), len(qstr), ctypes.addressof(qcoh_c), len(qcoh),
+        qangle, qstrength, qcoherence, float(qangle / hashing.PI), dev, stream,
+    )
+    if err:
+        raise RuntimeError(f"raisr_hash_buckets launch failed: cudaError {err}")
+    _count_hash_tiles(h, w)
+    return out
 
 
 def apply_filters(

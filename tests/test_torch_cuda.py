@@ -464,6 +464,111 @@ def test_launch_a_stacks_and_stripes(tier, pixel_types, bits):
                                                          **base))
 
 
+# -- launch A1 alone (hash_buckets) -----------------------------------------------
+
+
+def _serving_stack(ratio, dev, n=4, lr_h=1080, lr_w=1920, seed=60):
+    """Pass 1's input on a serving path: n smooth 8-bit frames as the 2x path
+    stacks them (LR guard rows 6, upscaled: 8736 x 3840 at 1080p) or the
+    1.5x path (6552 x 2880)."""
+    from raisr_tpu_torch.ops.resize import cheap_upscale, cheap_upscale_stacked
+
+    frames = torch.tensor(smooth_frames(n, lr_h, lr_w, seed=seed), device=dev)
+    lr = up.guard_band_stack(frames.to(torch.float32), 6)
+    if ratio == 2:
+        return cheap_upscale(lr, 2 * (lr_h + 12) * n, 2 * lr_w, 8)
+    out_h, out_w = RaisrConfig(ratio=1.5).output_size(lr_h, lr_w)
+    return cheap_upscale_stacked(lr, n, lr_h, 6, out_h, 6 * out_h // lr_h, out_w, 8)
+
+
+def _a1_plane(kind, dev):
+    """Planes for A1 alone: smaller than one tile (16x16, 22x34); sides that
+    are no multiple of 4 or of the 32x54 tile, with and without interior
+    tiles, on the word-by-word copies (w % 4 != 0) and the 16-byte ones; a
+    plane whose rows start 4 bytes off 16 (word-by-word, w % 4 == 0); 4700
+    wide; the 2x and 1.5x serving stacks; a row stripe of a plane; the flat
+    and patchwork planes of launch A's tests at 8 and 16 bits."""
+    sizes = {"16x16": (16, 16), "22x34": (22, 34), "37x63": (37, 63), "70x130": (70, 130),
+             "101x244": (101, 244), "75x4700": (75, 4700)}
+    if kind in sizes:
+        h, w = sizes[kind]
+        return torch.tensor(smooth(h, w, seed=h + w), device=dev)
+    if kind == "misaligned":
+        flat = torch.zeros(1 + 90 * 172, device=dev)
+        img = flat[1:].view(90, 172)
+        img.copy_(torch.tensor(smooth(90, 172, seed=3), device=dev))
+        assert img.data_ptr() % 16 == 4
+        return img
+    if kind == "stripe":  # rows 37..136 of a 1080p-wide plane, as a row stripe takes them
+        return torch.tensor(smooth(300, 1920, seed=8), device=dev)[37:137]
+    if kind in ("stack2x", "stack15x"):
+        return _serving_stack(2 if kind == "stack2x" else 1.5, dev)
+    bits = 16 if kind.endswith("16") else 8
+    return torch.tensor(_plane(kind.removesuffix("16"), bits), device=dev)
+
+
+@pytest.mark.parametrize("kind", ["16x16", "22x34", "37x63", "70x130", "101x244", "75x4700",
+                                  "misaligned", "stripe", "stack2x", "stack15x", "flat",
+                                  "spread", "spread16"])
+def test_hash_buckets_equal_plain_hash(kind):
+    """A1 alone: the uint8 bucket plane equals the plain hash byte for byte,
+    and HASH_TILES counts the plane's interior and edge tiles."""
+    dev = require_cuda()
+    img = _a1_plane(kind, dev)
+    hkw = {k: v for k, v in _kw(2, 16 if kind == "spread16" else 8).items()
+           if k in ("k1d", "nf", "qstr", "qcoh")}
+    before = dict(flk.HASH_TILES)
+    got = flk.hash_buckets(img, **hkw)
+    want = flk.hash_buckets_reference(img, **hkw).to(torch.uint8)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and got.shape == img.shape
+    assert torch.equal(got, want), int((got != want).sum())
+    interior, edge = flk.hash_tile_counts(*img.shape)
+    assert (flk.HASH_TILES["interior"] - before["interior"],
+            flk.HASH_TILES["edge"] - before["edge"]) == (interior, edge)
+
+
+@pytest.mark.parametrize("qangle,qstr,qcoh", [
+    (8, (0.0008, 0.004, 0.012, 0.03), (0.15, 0.3, 0.55)),  # 4 and 3 edges: the general count
+    (16, (0.01,), (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7)),  # 1 and 7
+    (12, (), ()),  # one strength and one coherence bin
+    (24, (0.001269,), (0.192916, 0.405942)),  # 1 and 2: the two-edge count, padded
+])
+def test_hash_buckets_bucket_grids(qangle, qstr, qcoh):
+    """Bucket grids other than 24 x 3 x 3: the general edge count (up to 8
+    a kind) and the two-edge count with fewer edges, byte for byte against
+    the plain hash on a patchwork plane."""
+    dev = require_cuda()
+    img = torch.tensor(patchwork(96, 172, seed=7), device=dev)
+    kw = _kw(2)
+    hkw = dict(k1d=kw["k1d"], nf=kw["nf"], qstr=qstr, qcoh=qcoh, qangle=qangle,
+               qstrength=len(qstr) + 1, qcoherence=len(qcoh) + 1)
+    got = flk.hash_buckets(img, **hkw)
+    want = flk.hash_buckets_reference(img, **hkw).to(torch.uint8)
+    assert torch.equal(got, want), int((got != want).sum())
+    assert int(torch.unique(want).numel()) > 1
+
+
+@pytest.mark.parametrize("kind", ["70x130", "101x244", "spread"])
+def test_hash_buckets_non_symmetric_taps(kind):
+    """A k1d whose taps are not symmetric bit for bit (tap 0 one ulp up) takes
+    the general form, and still equals the plain hash byte for byte; so does
+    the fused pass that runs it."""
+    dev = require_cuda()
+    img = _a1_plane(kind, dev)
+    kw = _kw(2)
+    k1d = list(kw["k1d"])
+    k1d[0] = float(np.nextafter(np.float32(k1d[0]), np.float32(1)))
+    hkw = dict(k1d=tuple(k1d), nf=kw["nf"], qstr=kw["qstr"], qcoh=kw["qcoh"])
+    got = flk.hash_buckets(img, **hkw)
+    want = flk.hash_buckets_reference(img, **hkw).to(torch.uint8)
+    assert torch.equal(got, want), int((got != want).sum())
+    f = torch.tensor(_model().banks[0].filters, device=dev)
+    pkw = dict(kw, k1d=tuple(k1d))
+    assert torch.equal(fk.raisr_pass_full(img, f, **pkw),
+                       fk.raisr_pass_full_reference(img, f, **pkw))
+
+
 # -- launch B alone (pass_epilogue) ---------------------------------------------
 
 

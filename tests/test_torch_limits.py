@@ -1,10 +1,12 @@
 """The CUDA pass's limits as plain functions, held on the CPU: the hash's
 bucket and edge limits (ops/cuda/filter_kernel.py check_bank_limits), the
-engine's refusal of a bank over them at construction on a CUDA device, and
-the shared-memory size rule of apply_filters (gather_smem_bytes,
-check_gather_smem). raisr_tpu has no such limits (its loader and kernels take
-any qangle x qstrength x qcoherence), so the CPU and the taps backend must
-go on taking those banks, as raisr_tpu does.
+engine's refusal of a bank over them at construction on a CUDA device, the
+shared-memory size rule of apply_filters (gather_smem_bytes,
+check_gather_smem), and the hash launch's count of interior and edge tiles
+(hash_tile_counts) with its wrapper on the CPU (hash_buckets). raisr_tpu has
+no such limits (its loader and kernels take any qangle x qstrength x
+qcoherence), so the CPU and the taps backend must go on taking those banks,
+as raisr_tpu does.
 """
 
 import numpy as np
@@ -138,3 +140,49 @@ def test_apply_filters_on_cpu_takes_any_bank_size(pixel_types):
     out = flk.apply_filters(img, b, f, pixel_types=pixel_types, ratio=2 if pixel_types == 4 else 1)
     bad = (b < 0) | (b >= n)
     assert bad.any() and (out[bad] == 0).all() and (out[~bad] != 0).all()
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (16, 16), (22, 34), (37, 63), (38, 60), (70, 120),
+                                 (70, 130), (101, 244), (75, 4700), (2160, 3840),
+                                 (8736, 3840), (6552, 2880)])
+def test_hash_tile_counts_match_a_plain_count(h, w):
+    """The hash launch's tiles, counted over their coordinates: interior
+    where the tile and the halo around it lie inside the plane."""
+    rows, cols, halo = flk.HASH_TILE_ROWS, flk.HASH_TILE_COLS, flk.HASH_HALO
+    interior = edge = 0
+    for y0 in range(0, h, rows):
+        for x0 in range(0, w, cols):
+            inside = (y0 - halo >= 0 and x0 - halo >= 0 and y0 + rows + halo <= h
+                      and x0 + cols + halo <= w)
+            interior += inside
+            edge += not inside
+    assert flk.hash_tile_counts(h, w) == (interior, edge)
+    if h < rows + 2 * halo or w < cols + 2 * halo:
+        assert interior == 0
+
+
+def test_hash_tile_counts_of_the_serving_stacks():
+    """The share of interior tiles on the 2x and 1.5x stacks of four 1080p
+    frames and on one 4K plane."""
+    assert flk.hash_tile_counts(8736, 3840) == (271 * 70, 273 * 72 - 271 * 70)
+    assert flk.hash_tile_counts(6552, 2880) == (203 * 52, 205 * 54 - 203 * 52)
+    assert flk.hash_tile_counts(2160, 3840) == (66 * 70, 68 * 72 - 66 * 70)
+
+
+def test_hash_buckets_on_cpu_is_the_plain_hash_in_bytes():
+    """On a CPU tensor hash_buckets runs the plain hash, as uint8, launches
+    nothing and counts no tile; it takes the CUDA kernel's bucket and edge
+    limits on every device."""
+    from raisr_tpu_torch.model.gaussian import gaussian_kernel_1d, normalization_factor
+    from torch_port_util import QCOH, QSTR
+
+    img = torch.from_numpy(smooth(40, 70, seed=9))
+    hkw = dict(k1d=tuple(float(v) for v in gaussian_kernel_1d(11)),
+               nf=normalization_factor(8), qstr=QSTR, qcoh=QCOH)
+    before = dict(flk.HASH_TILES)
+    got = flk.hash_buckets(img, **hkw)
+    assert got.dtype == torch.uint8
+    assert torch.equal(got, flk.hash_buckets_reference(img, **hkw).to(torch.uint8))
+    assert flk.HASH_TILES == before
+    with pytest.raises(ValueError, match="at most 256 buckets"):
+        flk.hash_buckets(img, **hkw, qangle=30)
