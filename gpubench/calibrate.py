@@ -6,12 +6,23 @@ seeds, and its control, in one process.
 
 For each seed it runs the cell as run.py does (inputs from the seed, set-up,
 a window of S seconds, the check against the plain reference) and prints
-the checked numbers. The control is the program's own lower-precision path
-switched on: the configuration's dtype stepped down (float32 -> bfloat16,
-bfloat16 -> int8), at the cell's own sizes and load; it has to come out not
-correct. The benchmark's own runs never run it. Prints one JSON line a run
-and a summary: the largest reading of the sound runs (the lower reading)
-and the smallest of the control's (the upper).
+the checked numbers. The control is the program run with some of the
+configuration's keys overridden, at the cell's own sizes and load; it has
+to come out not correct. It is the configuration file's own `"control"`
+object where the file has one; else the program's own lower-precision path
+switched on, the configuration's dtype stepped down (float32 -> bfloat16,
+bfloat16 -> int8). A configuration with neither is refused by name. The
+benchmark's own runs never run it. Prints one JSON line a run and a
+summary: the largest reading of the sound runs (the lower reading) and the
+smallest of the control's (the upper).
+
+A new configuration gets its control with no edit here: a change that
+adds it (with its cell, its reference module where its tier needs one, its
+own CPU test file and its entries in BENCHMARK.json) writes a `"control"`
+object into its file where its dtype has no lower tier above, as an int8
+configuration has none. gpubench/tests/test_gpubench_layout.py checks that
+every configuration in use resolves to a control, and
+test_gpubench_control.py runs the control of every cell on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +38,12 @@ LOWER_TIER = {"float32": "bfloat16", "bfloat16": "int8"}
 
 
 def control_overrides(cfg: dict) -> dict:
+    """The program's keys that the control of configuration `cfg` overrides."""
+    if "control" in cfg:
+        return dict(cfg["control"])
+    if cfg["dtype"] not in LOWER_TIER:
+        raise ValueError(f"configuration {cfg.get('name')!r}: the program has no tier below "
+                         f"{cfg['dtype']}; its file states no \"control\"")
     return {"dtype": LOWER_TIER[cfg["dtype"]]}
 
 

@@ -42,9 +42,17 @@ class Driver:
         y, u, v = self.ctx.frames
         self.inputs = [Frame(y=_host(y[i]), u=_host(u[i]), v=_host(v[i]))
                        for i in range(self.pool)]
-        n = self.ctx.traffic["warmup_units"]
-        for _ in self._stream(None).process(self.inputs[i % self.pool] for i in range(n)):
-            pass
+        # a frame kept for the check holds its group's pinned output planes,
+        # so the window holds up to `check_units` groups' planes besides the
+        # stream's own: the warm-up holds as many, so that the pinned pool
+        # is grown here and not by the page-locking of new blocks in the window
+        n = max(self.ctx.traffic["warmup_units"], self.batch * (self.kept.k + self.depth + 2))
+        held = []
+        frames = self._stream(None).process(self.inputs[i % self.pool] for i in range(n))
+        for j, frame in enumerate(frames):
+            if j % self.batch == 0 and len(held) < self.kept.k:
+                held.append(frame)
+        del held
 
     def _stream(self, tracer):
         from raisr_tpu_torch.stream import StreamProcessor

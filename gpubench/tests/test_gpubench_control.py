@@ -1,6 +1,8 @@
 """The control comes out not correct, on the card, at each cell's own sizes
-and load: the program's own lower-precision path (the bf16 tier for a
-float32 configuration) in place of the configuration's, on three seeds,
+and load, for every cell of BENCHMARK.json: `calibrate.control_overrides`
+of the cell's configuration (its file's own "control", else the program's
+own lower-precision path: the bf16 tier for a float32 configuration) in
+place of the configuration's, on three seeds,
 held to the same exact comparison that decides `correct`. A sound run of
 the same cell beside it comes out correct.
 
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import pytest
 import torch
-from conftest import ROOT
+from conftest import ROOT, cells
 
 from gpubench import calibrate, spec
 
@@ -20,7 +22,7 @@ pytestmark = pytest.mark.cuda
 SEEDS = [3_700_000_001, 3_700_104_731, 3_700_209_461]
 
 
-@pytest.mark.parametrize("name", ["x2-resident", "x15-resident", "x2-stream"])
+@pytest.mark.parametrize("name", cells(pending=False))
 def test_control_fails_and_the_program_passes(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the control runs the cell at its own size")
