@@ -170,12 +170,13 @@ class RaisrEngine:
         self._out_dtype = torch.uint8 if cfg.bits == 8 else torch.uint16
         # the bin edges travel as floats in self._statics; the banks are
         # prepared for the pass once, here (phase-0 rows, the tier's bank
-        # and its extras), on the engine's device and on each mesh device
+        # and its extras), on the engine's device and on each mesh device,
+        # each device's preparation one span `raisr.banks`
         devices = [self.device] + (self._mesh.distinct() if self._mesh else [])
-        self._banks = {
-            d: pass_banks(self._statics, bank_tensors(self.model, d)[0])
-            for d in dict.fromkeys(devices)
-        }
+        self._banks = {}
+        for d in dict.fromkeys(devices):
+            with span("raisr.banks"):
+                self._banks[d] = pass_banks(self._statics, bank_tensors(self.model, d)[0])
         self._filters = self._banks[self.device]
 
     def _mesh_devices(self, n: int) -> list[torch.device]:

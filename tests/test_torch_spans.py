@@ -1,8 +1,8 @@
-"""The port's spans on the CPU: the serving step's, the stream's and the
-per-frame path's stages as torch.profiler ranges, in order and nested; no
-range at all, and no host-clock stage from a disabled Tracer, while no
-profiler records; and the stream's "wait" stage without the caller's time.
-Banks are written under tmp_path."""
+"""The port's spans on the CPU: the engine's bank preparation, the serving
+step's, the stream's and the per-frame path's stages as torch.profiler
+ranges, in order and nested; no range at all, and no host-clock stage from
+a disabled Tracer, while no profiler records; and the stream's "wait" stage
+without the caller's time. Banks are written under tmp_path."""
 
 import time
 
@@ -28,9 +28,9 @@ def folder(tmp_path_factory):
     return write_bank_folder(tmp_path_factory.mktemp("spans") / "bank", passes=2, seed=3)
 
 
-def _engine(folder, **kw):
+def _engine(folder, shard=None, **kw):
     cfg = RaisrConfig(filterfolder=folder, backend="pallas", **kw)
-    return RaisrEngine(cfg, load_model(folder, cfg), device="cpu")
+    return RaisrEngine(cfg, load_model(folder, cfg), shard=shard, device="cpu")
 
 
 def _frames(n, h=16, w=24, seed=0):
@@ -77,16 +77,34 @@ def test_step_spans_in_order(folder, passes, mode):
     assert [s[0] for s in spans] == ["raisr.step"] + want
 
 
+@pytest.mark.parametrize("shard", [None, "data=2"])
+def test_bank_preparation_span(folder, monkeypatch, shard):
+    """Building an engine marks `raisr.banks` once a device (a CPU mesh
+    names one device twice), around the tier's bank preparation."""
+    from raisr_tpu_torch import engine as engine_mod
+
+    prepare = engine_mod.pass_banks
+
+    def marked(*a, **k):
+        with span("raisr.pass_banks"):
+            return prepare(*a, **k)
+
+    monkeypatch.setattr(engine_mod, "pass_banks", marked)
+    spans = _spans(lambda: _engine(folder, passes=2, dtype="bfloat16", shard=shard))
+    assert [s[0] for s in spans] == ["raisr.banks", "raisr.pass_banks"]
+    assert _inside(spans, _only(spans, "raisr.banks")) == ["raisr.pass_banks"]
+
+
 def test_no_range_without_a_profiler(folder, monkeypatch):
     """With no profiler recording, no span enters `record_function` (it is
-    patched to raise) on the step, the stream or the per-frame path, every
-    span is the one shared no-op context, and a disabled Tracer records
-    nothing."""
+    patched to raise) on the engine's construction, the step, the stream or
+    the per-frame path, every span is the one shared no-op context, and a
+    disabled Tracer records nothing."""
     def refuse(name):
         raise AssertionError(f"record_function({name!r}) with no profiler recording")
 
     monkeypatch.setattr(profiler, "record_function", refuse)
-    assert span("raisr.step") is span("raisr.pass")
+    assert span("raisr.step") is span("raisr.pass") is span("raisr.banks")
     engine = _engine(folder, passes=2)
     frames = _frames(3)
     tracer = Tracer(enabled=False)
