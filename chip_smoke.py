@@ -379,29 +379,6 @@ def make_patchwork(h: int, w: int, seed: int, device, blk: int = 16):
     return torch.clamp(torch.round(img), 0, 255).to(torch.float32).contiguous()
 
 
-def quarter_warp_rows(buckets) -> tuple[float, float]:
-    """What launch A2's bank reads cost on one plane's buckets: over every
-    quarter-warp (8 lanes: same-phase pixels of one row, 2 columns apart, in
-    each of the 4 phases; a ragged end dropped), the mean count of distinct
-    bank rows, and the mean count of shared-memory wavefronts a 16-byte read
-    takes, the most distinct rows that agree mod 8 (they fall in one bank
-    group; equal rows are broadcasts)."""
-    import torch
-
-    distinct, waves = [], []
-    for pr in (0, 1):
-        for pc in (0, 1):
-            sub = buckets[pr::2, pc::2]
-            n = sub.shape[1] // 8 * 8
-            s, _ = torch.sort(sub[:, :n].reshape(-1, 8).to(torch.int64), dim=1)
-            new = torch.ones_like(s, dtype=torch.bool)
-            new[:, 1:] = s[:, 1:] != s[:, :-1]
-            distinct.append(new.sum(1).to(torch.float64))
-            per_group = torch.stack([(new & (s % 8 == g)).sum(1) for g in range(8)], 1)
-            waves.append(per_group.amax(1).to(torch.float64))
-    return float(torch.cat(distinct).mean()), float(torch.cat(waves).mean())
-
-
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     """Device time of one call: one pair of CUDA events around `iters`
     back-to-back calls (after `warmup` calls), over `iters`. The host
@@ -438,6 +415,29 @@ def graph_ms(fn, calls: int = 100, replays: int = 5) -> float:
         for _ in range(calls):
             fn()
     return cuda_ms(graph.replay, replays, 1) / calls
+
+
+def gather_forms() -> list[str]:
+    """Each A2 form's registers, as ptxas left them in the built library
+    (`cuobjdump -res-usage`), and the dynamic shared memory it asks for at
+    216 buckets (flk.gather_smem_bytes)."""
+    import re
+
+    from raisr_tpu_torch.ops.cuda import _build
+    from raisr_tpu_torch.ops.cuda import filter_kernel as flk
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", str(_build.build())], capture_output=True,
+                          text=True).stdout
+    tiers = ("float32", "bfloat16", "pcenter", "int8")
+    lines = []
+    for m in re.finditer(r"gather_resident_kernelILi(\d)ELNS_4TierE(\d)E([hi])E\S*\s+"
+                         r"REG:(\d+) STACK:(\d+)", text):
+        phases, tier, hashed = int(m[1]), tiers[int(m[2])], m[3] == "h"
+        smem = flk.gather_smem_bytes(216, phases, tier, hashed)
+        lines.append(f"<{phases}, {tier}, {'uint8_t' if hashed else 'int'}>: {m[4]} registers, "
+                     f"{m[5]} B stack, {smem} B of dynamic shared memory at 216 buckets")
+    return lines or ["registers not read (no cuobjdump output)"]
 
 
 def zero(counts: dict) -> None:
@@ -797,7 +797,7 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
 
     # a bank whose rows do not fit in shared memory beside the tile buffers
     # is refused, never gathered from device memory
-    for pt, n in ((4, 273), (1, 399)):
+    for pt, n in ((4, 295), (1, 412)):
         big = torch.zeros((n * pt, 128), device=dev)
         try:
             flk.apply_filters(cheap, rand, big, pixel_types=pt, ratio=2 if pt == 4 else 1)
@@ -899,10 +899,38 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
               f"fused pass {r['fused']:.3f} ms (plain {r['fused_plain']:.3f}); the fused "
               f"pass's kernels (torch.profiler), ms: "
               f"{pass_breakdown(lambda: fk.raisr_pass_full(x, f, **fused_kw[name]))}")
-    for name, b in (("plane", buckets), ("patchwork", buckets_patch)):
-        rows, waves = quarter_warp_rows(b)
+    # A2's shared-memory reads, counted: wavefronts a quarter-warp bank load
+    # and patch reads a pixel, in the parent's lane order and the kernel's
+    slots = flk.bank_slots(24, 3, 3)
+    uniform = torch.randint(0, 216, cheap.shape, generator=gen, device=dev)
+    for name, b, pt in (("plane", buckets, 4), ("patchwork", buckets_patch, 4),
+                        ("uniform random plane", uniform, 4), ("1.5x stack", buckets15, 1)):
+        parent, parent_reads = flk.gather_wavefronts(b, pt, order="parent")
+        kernel, kernel_reads = flk.gather_wavefronts(b, pt, slots)
         print(f"phase 10 A2 bank reads on the {name}: {int(torch.unique(b).numel())} buckets, "
-              f"{rows:.3f} distinct rows and {waves:.3f} wavefronts a quarter-warp (of 8)")
+              f"{parent:.4f} -> {kernel:.4f} wavefronts a quarter-warp load, "
+              f"{parent_reads:g} -> {kernel_reads:g} patch reads a pixel (parent's order -> "
+              f"the kernel's)")
+    # A2 alone over A1's buckets (gather_buckets) on the serving stacks, each
+    # form the cells run, against the plain filter apply; its time in the
+    # fused pass; each form's registers and shared memory
+    for name, x, hk, bank, pt, errs in (("2x stack", stack, hkw, f, 4, errsh),
+                                        ("1.5x stack", stack15, hkw15, f15, 1, errs1)):
+        b8 = flk.hash_buckets(x, **hk)
+        for tier, fb in (("float32", bank), ("bfloat16", fk.round_bf16_error_diffused(bank))):
+            errs.append(hold("10 gather_buckets (A2 alone)", f"{tier}, the {name} "
+                             f"{tuple(x.shape)}",
+                             flk.gather_buckets(x, b8, fb, pixel_types=pt,
+                                                tier=fk._TIER_CODE[tier]),
+                             flk.apply_filters_reference(x, b8.to(torch.int32), fb,
+                                                         pixel_types=pt,
+                                                         ratio=2 if pt == 4 else 1)))
+            fused = dict(skw if pt == 4 else c15["skw"], pixel_types=pt, tier=tier)
+            print(f"phase 10 A2 in the fused pass on {card}, {tier}, the {name}: kernels "
+                  f"(torch.profiler), ms: "
+                  f"{pass_breakdown(lambda: fk.raisr_pass_full(x, fb, **fused))}")
+    for line in gather_forms():
+        print(f"phase 10 A2 form {line}")
     print(f"phase 10 times on {card}: apply_filters with uniform buckets in [-8, 232) "
           f"{t['plane']['apply_rand']:.3f} ms (plain {t['plane']['apply_rand_plain']:.3f}); "
           f"single-phase apply_filters {tuple(cheap15.shape)} {ms15:.3f} ms (plain "

@@ -60,9 +60,9 @@
 //   A2 (gather_resident_kernel<kPhases, kTier, Bucket>): persistent blocks,
 //     each serving ONE pixel phase with that phase's bank rows resident in
 //     shared memory, walk over tiles of same-phase pixels and write the raw
-//     filter output (dot_rows of raisr_common.cuh). Bucket is uint8_t for
-//     A1's plane and int for a caller's (apply_filters), which is range
-//     checked.
+//     filter output (dot_rows of raisr_common.cuh), four pixels a thread,
+//     each warp's lanes ordered by bucket. Bucket is uint8_t for A1's plane
+//     and int for a caller's (apply_filters), which is range checked.
 //   B (epilogue_kernel<kCobc, kVec>): reject, zones, census blend and
 //     rounding. Each pixel's HR value is formed once, on the way in; see the
 //     note above the kernel.
@@ -87,16 +87,34 @@
 //     where a 16-byte load is served a quarter-warp (8 lanes) per wavefront
 //     and lanes on one row are broadcasts. The row stride is 124 floats (31
 //     groups) or 136 16-bit taps (17 groups), odd numbers of 16-byte groups,
-//     so row b's group q sits in bank group (q - b) mod 8 (float32) or
-//     (q + b) mod 8 (16 bits): 8 lanes on 8 different rows conflict only
-//     where their rows agree mod 8.
+//     so shared row s's group q sits in bank group (q - s) mod 8 (float32)
+//     or (q + s) mod 8 (16 bits): a quarter's load takes as many wavefronts
+//     as the most distinct rows it reads that agree mod 8. On the cells'
+//     content the 8 lanes of a quarter in column order read ~6.4 distinct
+//     rows, ~2.0 wavefronts a load (flk.gather_wavefronts counts it on a
+//     bucket plane), whatever static layout of the rows (neighbouring
+//     pixels' buckets co-occur nearly at random). So the rows are staged at
+//     slots that put the buckets of one strength together, (strength *
+//     qangle + angle) * qcoherence + coherence (bank_slot; a caller's int
+//     buckets stay at their own index), and once a tile each warp sorts its
+//     32 columns by the slot of one of its pixels (a bitonic sort over
+//     shuffles) and lane L serves the L-th: a quarter then reads a run of
+//     neighbouring slots, which fall in different bank groups. That pixel's
+//     loads take ~1.64 wavefronts, the others' ~1.9, ~1.85 on average at 2x
+//     (uniform random buckets: 2.52 -> 2.48). A row's relabelling changes no
+//     value: each pixel still dots its own row, taps 0..120 in order.
 //   - The patch: scalar shared-memory reads. A block serves one phase, so a
 //     warp's lanes are same-phase pixels two columns apart; the staged tile
-//     is stored split by column parity (two planes), so lane j of any tap
-//     reads word j + const of one plane: conflict-free. A thread takes two
-//     same-phase pixels one phase row apart, whose patches share 9 of their
-//     11 rows, and reads each shared value once: 143 reads for the two
-//     pixels, not 242.
+//     is stored split by column parity (two planes), so the lanes of any tap
+//     read 32 consecutive words of one plane, in the sort's order:
+//     conflict-free. A thread takes four same-phase pixels of one column,
+//     one phase row apart, whose patches share rows, and reads each shared
+//     value once: 187 reads for the four pixels at 2x (46.75 a pixel, 1.46
+//     wavefronts), 154 at 1.5x, not 484.
+//   - Together, ~8.8 wavefronts a 2x float32 pixel (7.2 for the row, 1.5
+//     for the patch, ~0.2 for the staging) against ~10.2 with two pixels a
+//     thread in column order; the dot's 242 operations issue in ~2.5
+//     clocks a pixel an SM, so the wavefronts still bound A2.
 //   - The hash is needed at every pixel, and its scratch (gradient products
 //     and tensor sums, ~37 KB a 256-pixel tile) does not fit beside a float32
 //     phase bank for more than two tiles in flight; a block serving one phase
@@ -130,11 +148,13 @@
 //     slower. A block copies its next tile's window with cp.async (16 bytes
 //     a copy where every row of the plane starts on 16 bytes) once the
 //     current window is read, during the rest of the tile.
-//   - A2's blocks: 4 groups of 256 threads (1024 threads), one tile of 16 x 32
-//     same-phase pixels a group at a time; the groups sync on their own named
-//     barriers, so one group waits while the others compute, and each group
-//     copies its next tile into a second buffer with cp.async during the dot
-//     of the current one. One block a SM, no more than the tiles need.
+//   - A2's blocks: 2 groups of 256 threads (512 threads, 86-125 registers),
+//     one tile of 32 x 32 same-phase pixels a group at a time (a warp takes 4
+//     rows); the groups sync on their own named barriers, so one group waits
+//     while the other computes, and each group copies its next tile into a
+//     second buffer with cp.async during the dot of the current one. One
+//     block a SM, no more than the tiles need. The four buffers (86,432 bytes
+//     at 2x) leave room for 294 float32 rows (411 single-phase).
 // The host keeps the bank as [rows, 128]; A2's staging copies make the
 // phase-major, re-strided layout the card reads.
 //
@@ -501,19 +521,20 @@ hash_bucket_kernel(const float* __restrict__ cheap, uint8_t* __restrict__ bucket
 // -- A2: the gather with the bank resident in shared memory ------------------
 
 constexpr int kGroupThreads = 256;                        // 8 warps
-constexpr int kGroups = 4;                                // tile groups a block
-constexpr int kBlockThreads = kGroups * kGroupThreads;    // 1024
-constexpr int kPix = 2;                                   // pixels a thread, one column
-constexpr int kTileRows = kPix * kGroupThreads / 32;      // same-phase rows a tile: 16
+constexpr int kGroups = 2;                                // tile groups a block
+constexpr int kBlockThreads = kGroups * kGroupThreads;    // 512
+constexpr int kPix = 4;                                   // pixels a thread, one column
+constexpr int kTileRows = kPix * kGroupThreads / 32;      // same-phase rows a tile: 32
 constexpr int kTileCols = 32;                             // same-phase columns: a lane each
+constexpr int kSortPixel = 1;  // the pixel of a thread whose bank row orders the warp's lanes
 
-// A tile of 16 x 32 same-phase pixels, kStep (2 for 4 phases, 1 for 1)
+// A tile of 32 x 32 same-phase pixels, kStep (2 for 4 phases, 1 for 1)
 // rows and columns apart, and its staged patch region: the rows and columns
 // its patches cover, stored as kStep planes by column parity, so that
 // region column x is word x / kStep of plane x % kStep.
 template <int kStep>
 struct TileShape {
-  static constexpr int kRows = kStep * (kTileRows - 1) + kPatch;   // 41 or 26
+  static constexpr int kRows = kStep * (kTileRows - 1) + kPatch;   // 73 or 42
   static constexpr int kCols = kStep * (kTileCols - 1) + kPatch;   // 73 or 42
   static constexpr int kPlaneW = (kCols + kStep - 1) / kStep;      // 37 or 42
   static constexpr int kRowStride = kStep * kPlaneW;               // 74 or 42
@@ -526,15 +547,35 @@ struct TileShape {
 template <typename TF>
 constexpr int kSmemRowBytes = 16 * (kRowGroups<TF> | 1);  // 496 (float32) or 272
 
-// A2's dynamic shared memory: the phase's rows, the pcenter bias, then two
-// tile buffers a group
-template <int kPhases, Tier kTier>
+// A bucket's row in shared memory, its slot: the hash's buckets
+// (angle * qstrength + strength) * qcoherence + coherence are laid out as
+// (strength * qangle + angle) * qcoherence + coherence, so the buckets of
+// one strength, whose angles and coherences neighbouring pixels share, lie
+// together; see the header.
+__device__ __forceinline__ int bank_slot(int bucket, int qangle, int qstrength, int qcoherence) {
+  const int angle = bucket / (qstrength * qcoherence);
+  const int strength = bucket / qcoherence % qstrength;
+  return (strength * qangle + angle) * qcoherence + bucket % qcoherence;
+}
+
+// A2's dynamic shared memory: the phase's rows (by slot), the pcenter bias
+// (by slot), the slot of each bucket (uint8_t buckets: the hash's grid,
+// at most 256 buckets; a caller's int buckets are their own slots), then
+// two tile buffers a group
+template <int kPhases, Tier kTier, typename Bucket>
 struct GatherSmem {
   using TF = typename TierTypes<kTier>::Bank;
   static constexpr int kStep = kPhases == 4 ? 2 : 1;
-  __host__ __device__ static size_t tiles_offset(int n_buckets) {
+  static constexpr bool kSlots = std::is_same<Bucket, uint8_t>::value;
+  __host__ __device__ static size_t bias_offset(int n_buckets) {
+    return static_cast<size_t>(n_buckets) * kSmemRowBytes<TF>;
+  }
+  __host__ __device__ static size_t slots_offset(int n_buckets) {
     const size_t bias = kTier == Tier::kPCenter ? ((n_buckets * 4 + 15) / 16) * 16 : 0;
-    return static_cast<size_t>(n_buckets) * kSmemRowBytes<TF> + bias;
+    return bias_offset(n_buckets) + bias;
+  }
+  __host__ __device__ static size_t tiles_offset(int n_buckets) {
+    return slots_offset(n_buckets) + (kSlots ? 256 : 0);
   }
   __host__ __device__ static size_t bytes(int n_buckets) {
     return tiles_offset(n_buckets) +
@@ -547,27 +588,48 @@ __device__ __forceinline__ void group_sync(int group) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(kGroupThreads) : "memory");
 }
 
+// The warp's 32 values in ascending order, lane i holding the i-th
+// (a bitonic sort over shuffles: 15 compare-exchange steps)
+__device__ __forceinline__ int warp_sort(int v, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int o = __shfl_xor_sync(0xffffffffu, v, j);
+      v = ((lane & j) == 0) == ((lane & k) == 0) ? min(v, o) : max(v, o);
+    }
+  }
+  return v;
+}
+
 // Persistent: block b serves phase b % kPhases. It stages that phase's rows
-// (bucket * kPhases + phase) once, then each of its groups walks over the
-// phase's tiles, kGroups * (gridDim.x / kPhases) tiles apart. pbias
-// (kPCenter) is the bank's per-row bias, inv_scale (kInt8) its 1/scale; the
-// other tiers ignore them. Bucket is the element of the bucket plane:
-// uint8_t, A1's, every value a row of the bank; int, a caller's, where a
-// value outside [0, n_buckets) gives raw 0 (its dot runs over row 0 and is
-// dropped, so no address outside the staged rows is formed).
+// (bucket * kPhases + phase) once, each at its bucket's slot, then each of
+// its groups walks over the phase's tiles, kGroups * (gridDim.x / kPhases)
+// tiles apart. A warp takes 4 same-phase rows of a tile; once a tile, it
+// sorts its 32 columns by the slot of pixel kSortPixel's bucket, and lane L
+// serves the L-th column of that order (its buckets, its patch, its raw
+// stores). qangle, qstrength and qcoherence are the hash's grid (uint8_t
+// buckets); pbias (kPCenter) is the bank's per-row bias, inv_scale (kInt8)
+// its 1/scale; the other tiers ignore them. Bucket is the element of the
+// bucket plane: uint8_t, A1's, every value a row of the bank; int, a
+// caller's, its own slot, where a value outside [0, n_buckets) gives raw 0
+// (its dot runs over row 0 and is dropped, so no address outside the staged
+// rows is formed).
 template <int kPhases, Tier kTier, typename Bucket>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 gather_resident_kernel(const float* __restrict__ cheap,
                        const Bucket* __restrict__ buckets,
                        const typename TierTypes<kTier>::Bank* __restrict__ filters,
                        const float* __restrict__ pbias, float inv_scale,
-                       float* __restrict__ raw, int h, int w, int n_buckets) {
+                       float* __restrict__ raw, int h, int w, int n_buckets,
+                       int qangle, int qstrength, int qcoherence) {
   using TF = typename TierTypes<kTier>::Bank;
   using TP = typename Taps<TF>::Acc;
+  using Smem = GatherSmem<kPhases, kTier, Bucket>;
   constexpr int kStep = kPhases == 4 ? 2 : 1;
   using Shape = TileShape<kStep>;
   constexpr int kRowBytes = kSmemRowBytes<TF>;
-  constexpr bool kChecked = !std::is_same<Bucket, uint8_t>::value;
+  constexpr bool kChecked = !Smem::kSlots;
 
   // the phase's pixels: rows r0 + kStep * i, columns c0 + kStep * j, where
   // a pixel's phase is ((r-5) mod 2, (c-5) mod 2)
@@ -585,27 +647,34 @@ gather_resident_kernel(const float* __restrict__ cheap,
 
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* s_bank = smem;
-  float* s_bias = reinterpret_cast<float*>(smem + static_cast<size_t>(n_buckets) * kRowBytes);
-  TP* s_tiles = reinterpret_cast<TP*>(
-      smem + GatherSmem<kPhases, kTier>::tiles_offset(n_buckets)) + 2 * group * Shape::kWords;
+  float* s_bias = reinterpret_cast<float*>(smem + Smem::bias_offset(n_buckets));
+  unsigned char* s_slot = smem + Smem::slots_offset(n_buckets);
+  TP* s_tiles = reinterpret_cast<TP*>(smem + Smem::tiles_offset(n_buckets)) +
+                2 * group * Shape::kWords;
+  auto slot_of = [&](int b) {
+    if constexpr (Smem::kSlots) {
+      return bank_slot(b, qangle, qstrength, qcoherence);
+    } else {
+      return b;
+    }
+  };
 
   // stage the phase's rows: global row bucket * kPhases + phase (128 taps)
-  // to shared row bucket (kRowBytes apart), 16 bytes a copy
+  // to shared row slot(bucket) (kRowBytes apart), 16 bytes a copy
   {
     const unsigned char* src = reinterpret_cast<const unsigned char*>(filters);
     constexpr int kG = kRowGroups<TF>;
     for (int i = threadIdx.x; i < n_buckets * kG; i += kBlockThreads) {
       const int b = i / kG;
       const int q = i % kG;
-      cp_async16(s_bank + static_cast<size_t>(b) * kRowBytes + 16 * q,
+      cp_async16(s_bank + static_cast<size_t>(slot_of(b)) * kRowBytes + 16 * q,
                  src + (static_cast<size_t>(b) * kPhases + phase) * kFilterStride * sizeof(TF) +
                      16 * q);
     }
     asm volatile("cp.async.commit_group;\n" ::);
-    if constexpr (kTier == Tier::kPCenter) {
-      for (int b = threadIdx.x; b < n_buckets; b += kBlockThreads) {
-        s_bias[b] = pbias[b * kPhases + phase];
-      }
+    for (int b = threadIdx.x; b < n_buckets; b += kBlockThreads) {
+      if constexpr (kTier == Tier::kPCenter) s_bias[slot_of(b)] = pbias[b * kPhases + phase];
+      if constexpr (Smem::kSlots) s_slot[b] = static_cast<unsigned char>(slot_of(b));
     }
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   }
@@ -618,7 +687,7 @@ gather_resident_kernel(const float* __restrict__ cheap,
   // Tile t's patch region, from (tile row 0) - 5 and (tile column 0) - 5,
   // copied into buffer b (zero outside the plane) as one cp.async group;
   // element e of the region is this thread's for e = gtid (mod 256).
-  auto slot = [&](int e) {
+  auto region_word = [&](int e) {
     const int y = e / Shape::kCols;
     const int x = e % Shape::kCols;
     return y * Shape::kRowStride + (x % kStep) * Shape::kPlaneW + x / kStep;
@@ -634,8 +703,8 @@ gather_resident_kernel(const float* __restrict__ cheap,
         const int gr = top + e / Shape::kCols;
         const int gc = left + e % Shape::kCols;
         const bool valid = gr >= 0 && gr < h && gc >= 0 && gc < w;
-        cp_async4_zfill(dst + slot(e), valid ? cheap + static_cast<size_t>(gr) * w + gc : cheap,
-                        valid);
+        cp_async4_zfill(dst + region_word(e),
+                        valid ? cheap + static_cast<size_t>(gr) * w + gc : cheap, valid);
       }
     }
   };
@@ -644,27 +713,40 @@ gather_resident_kernel(const float* __restrict__ cheap,
   asm volatile("cp.async.commit_group;\n" ::);
   int buf = 0;
   for (int t = first; t < n_tiles; t += stride, buf ^= 1) {
-    // the thread's pixels: same-phase rows kPix * warp .. +kPix-1 of the
-    // tile, same-phase column lane
+    // the warp's pixels: same-phase rows kPix * warp .. +kPix-1 of the
+    // tile; this lane's column until the sort, then the column it serves
     const int r = r0 + kStep * (kTileRows * (t / tiles_c) + kPix * warp);
-    const int c = c0 + kStep * (kTileCols * (t % tiles_c) + lane);
-    bool inside[kPix];
-    bool held[kPix];  // the pixel's bucket is a row of the bank
-    int bucket[kPix];
+    const int tile_c = c0 + kStep * kTileCols * (t % tiles_c);
+    int slot[kPix];
+    unsigned held = 0;  // bit p: pixel p's bucket is a row of the bank
 #pragma unroll
     for (int p = 0; p < kPix; ++p) {
-      inside[p] = r + kStep * p < h && c < w;
-      bucket[p] = inside[p] ? buckets[static_cast<size_t>(r + kStep * p) * w + c] : 0;
-      held[p] = true;
+      const bool inside = r + kStep * p < h && tile_c + kStep * lane < w;
+      int b = inside ? buckets[static_cast<size_t>(r + kStep * p) * w + tile_c + kStep * lane] : 0;
       if constexpr (kChecked) {
-        held[p] = bucket[p] >= 0 && bucket[p] < n_buckets;
-        bucket[p] = held[p] ? bucket[p] : 0;
+        const bool in_bank = b >= 0 && b < n_buckets;
+        held |= static_cast<unsigned>(in_bank) << p;
+        b = in_bank ? b : 0;
       }
+      slot[p] = b;
     }
 
     group_sync(group);  // the group's dot of the previous tile is done with buffer buf ^ 1
     if (t + stride < n_tiles) issue(t + stride, buf ^ 1);  // in flight during this dot
     asm volatile("cp.async.commit_group;\n" ::);
+
+    // the lanes in order of pixel kSortPixel's slot, so that a quarter-warp
+    // reads neighbouring slots, which lie in different bank groups
+    if constexpr (Smem::kSlots) {
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) slot[p] = s_slot[slot[p]];
+    }
+    const int src = warp_sort(slot[kSortPixel] * 32 + lane, lane) & 31;
+#pragma unroll
+    for (int p = 0; p < kPix; ++p) slot[p] = __shfl_sync(0xffffffffu, slot[p], src);
+    if constexpr (kChecked) held = __shfl_sync(0xffffffffu, held, src);
+    const int c = tile_c + kStep * src;
+
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this thread's copies of tile t
     TP* s_tile = s_tiles + buf * Shape::kWords;
     if constexpr (kTier == Tier::kPCenter || kTier == Tier::kInt8) {
@@ -684,22 +766,23 @@ gather_resident_kernel(const float* __restrict__ cheap,
     }
     group_sync(group);
 
-    const TP* base = s_tile + kStep * kPix * warp * Shape::kRowStride + lane;
+    const TP* base = s_tile + kStep * kPix * warp * Shape::kRowStride + src;
     float v[kPix];
     dot_rows<TF, kPix, kStep>(
         v,
         [&](int p, int q) {
-          return reinterpret_cast<const uint4*>(s_bank + bucket[p] * kRowBytes)[q];
+          return reinterpret_cast<const uint4*>(s_bank + slot[p] * kRowBytes)[q];
         },
         [&](int rho, int dx) {
           return base[rho * Shape::kRowStride + (dx % kStep) * Shape::kPlaneW + dx / kStep];
         });
 #pragma unroll
     for (int p = 0; p < kPix; ++p) {
-      if (!inside[p]) continue;
-      if constexpr (kTier == Tier::kPCenter) v[p] = v[p] + s_bias[bucket[p]];
+      if (r + kStep * p >= h || c >= w) continue;
+      if constexpr (kTier == Tier::kPCenter) v[p] = v[p] + s_bias[slot[p]];
       if constexpr (kTier == Tier::kInt8) v[p] = v[p] * inv_scale;
-      raw[static_cast<size_t>(r + kStep * p) * w + c] = held[p] ? v[p] : 0.0f;
+      if constexpr (kChecked) v[p] = (held >> p) & 1 ? v[p] : 0.0f;
+      raw[static_cast<size_t>(r + kStep * p) * w + c] = v[p];
     }
   }
 }
@@ -911,18 +994,20 @@ epilogue_kernel(const float* __restrict__ cheap, const float* __restrict__ raw,
 
 template <typename Bucket>
 using GatherLaunch = cudaError_t (*)(const float*, const Bucket*, const void*, const float*,
-                                     float, float*, int, int, int, int, cudaStream_t);
+                                     float, float*, int, int, int, int, int, int, int,
+                                     cudaStream_t);
 
-// Launch A2: one persistent block a SM (a block of 1024 threads at 59-64
-// registers fills the register file), a whole multiple of kPhases, and no
-// more than the tiles of a phase need. A block that cannot get its shared
-// memory fails cudaFuncSetAttribute or the launch, and the error returns.
+// Launch A2: one persistent block a SM (a block of 512 threads and its
+// shared memory fill a SM), a whole multiple of kPhases, and no more than
+// the tiles of a phase need. A block that cannot get its shared memory fails
+// cudaFuncSetAttribute or the launch, and the error returns.
 template <int kPhases, Tier kTier, typename Bucket>
 cudaError_t launch_gather(const float* cheap, const Bucket* buckets, const void* filters,
                           const float* pbias, float inv_scale, float* raw, int h, int w,
-                          int n_buckets, int device, cudaStream_t st) {
+                          int n_buckets, int qangle, int qstrength, int qcoherence, int device,
+                          cudaStream_t st) {
   constexpr int kStep = kPhases == 4 ? 2 : 1;
-  const size_t smem = GatherSmem<kPhases, kTier>::bytes(n_buckets);
+  const size_t smem = GatherSmem<kPhases, kTier, Bucket>::bytes(n_buckets);
   cudaError_t err = cudaFuncSetAttribute(&gather_resident_kernel<kPhases, kTier, Bucket>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -939,7 +1024,7 @@ cudaError_t launch_gather(const float* cheap, const Bucket* buckets, const void*
   gather_resident_kernel<kPhases, kTier, Bucket>
       <<<static_cast<int>(per_phase * kPhases), kBlockThreads, smem, st>>>(
           cheap, buckets, static_cast<const typename TierTypes<kTier>::Bank*>(filters), pbias,
-          inv_scale, raw, h, w, n_buckets);
+          inv_scale, raw, h, w, n_buckets, qangle, qstrength, qcoherence);
   return cudaGetLastError();
 }
 
@@ -1013,6 +1098,21 @@ cudaError_t launch_hash(const float* cheap, uint8_t* buckets, int h, int w,
   return cudaGetLastError();
 }
 
+// A2's form for a tier code (0 float32, 1 bfloat16, 2 pcenter, 3 int8) over
+// the hash's uint8 buckets; the caller has checked the code and the phases
+GatherLaunch<uint8_t> tier_gather(int tier, bool four) {
+  switch (static_cast<Tier>(tier)) {
+    case Tier::kBF16:
+      return four ? &launch_gather<4, Tier::kBF16, uint8_t> : &launch_gather<1, Tier::kBF16, uint8_t>;
+    case Tier::kPCenter:
+      return &launch_gather<4, Tier::kPCenter, uint8_t>;
+    case Tier::kInt8:
+      return &launch_gather<4, Tier::kInt8, uint8_t>;
+    default:
+      return four ? &launch_gather<4, Tier::kF32, uint8_t> : &launch_gather<1, Tier::kF32, uint8_t>;
+  }
+}
+
 }  // namespace
 
 // Launch A1 alone: every pixel's bucket of the [h, w] float32 plane `cheap`
@@ -1063,24 +1163,32 @@ extern "C" int raisr_full_hash_filter(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_hash(cheap, buckets, h, w, hp, device, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  GatherLaunch<uint8_t> launch = nullptr;
-  switch (static_cast<Tier>(tier)) {
-    case Tier::kF32:
-      launch = four ? &launch_gather<4, Tier::kF32, uint8_t> : &launch_gather<1, Tier::kF32, uint8_t>;
-      break;
-    case Tier::kBF16:
-      launch = four ? &launch_gather<4, Tier::kBF16, uint8_t>
-                    : &launch_gather<1, Tier::kBF16, uint8_t>;
-      break;
-    case Tier::kPCenter:
-      launch = &launch_gather<4, Tier::kPCenter, uint8_t>;
-      break;
-    case Tier::kInt8:
-      launch = &launch_gather<4, Tier::kInt8, uint8_t>;
-      break;
+  return static_cast<int>(tier_gather(tier, four)(cheap, buckets, filters, pbias, inv_scale, raw,
+                                                  h, w, n_buckets, qangle, qstrength,
+                                                  qcoherence, device, st));
+}
+
+// Launch A2 alone over a uint8 bucket plane [h, w], as launch A hands it
+// over from A1: every value must be a row of the bank (below
+// qangle*qstrength*qcoherence, at most 256). filters, tier, pbias,
+// inv_scale and phases as for raisr_full_hash_filter. Returns a cudaError_t
+// value (0 on success).
+extern "C" int raisr_gather_buckets(const float* cheap, const uint8_t* buckets,
+                                    const void* filters, int tier, const float* pbias,
+                                    float inv_scale, float* raw, int h, int w, int phases,
+                                    int qangle, int qstrength, int qcoherence, int device,
+                                    void* stream) {
+  const bool four = phases == 4;
+  if (h <= 0 || w <= 0 || (phases != 1 && !four) || tier < 0 || tier > 3 ||
+      (tier >= 2 && !four) || (tier == 2 && pbias == nullptr) || qangle <= 0 ||
+      qstrength <= 0 || qcoherence <= 0 || qangle * qstrength * qcoherence > 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(
-      launch(cheap, buckets, filters, pbias, inv_scale, raw, h, w, n_buckets, device, st));
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  return static_cast<int>(tier_gather(tier, four)(
+      cheap, buckets, filters, pbias, inv_scale, raw, h, w, qangle * qstrength * qcoherence,
+      qangle, qstrength, qcoherence, device, static_cast<cudaStream_t>(stream)));
 }
 
 // Launch B: out = the pass epilogue of (cheap, raw), all [h, w] float32;
@@ -1127,5 +1235,5 @@ extern "C" int raisr_filter_apply(const float* cheap, const int* buckets,
   GatherLaunch<int> launch =
       phases == 4 ? &launch_gather<4, Tier::kF32, int> : &launch_gather<1, Tier::kF32, int>;
   return static_cast<int>(launch(cheap, buckets, filters, nullptr, 1.0f, raw, h, w, n_buckets,
-                                 device, static_cast<cudaStream_t>(stream)));
+                                 n_buckets, 1, 1, device, static_cast<cudaStream_t>(stream)));
 }

@@ -12,11 +12,14 @@
 // An int16 row (the int8 tier) sums exactly in int32, so its order does not
 // matter.
 //
-// What bounds a dot on an H100 is how its row arrives, not its arithmetic
-// (121 multiplies and adds): 31 16-byte loads at float32 and 16 at 16 bits.
-// From shared memory they are served a quarter-warp at a time, and rows
-// that coincide are broadcasts; see full_kernel.cu for the layout that
-// spreads the rest over the banks.
+// What bounds a dot on an H100 is how its row and patch arrive, not its
+// arithmetic (121 multiplies and adds): 31 16-byte loads at float32 and 16
+// at 16 bits, and the patch's scalar reads. From shared memory the row's
+// loads are served a quarter-warp at a time, rows that coincide are
+// broadcasts, and distinct rows in one bank group are served one after
+// another; full_kernel.cu orders each warp's lanes so that a quarter's rows
+// fall in different groups, and gives a thread four pixels (P) whose
+// shared patch values it reads once.
 
 #pragma once
 

@@ -112,6 +112,9 @@ def load_library() -> ctypes.CDLL:
     fn = lib.raisr_full_hash_filter
     fn.argtypes = [vp, vp, i, vp, f, vp, vp, i, i, i, vp, f, vp, i, vp, i, i, i, i, f, i, vp]
     fn.restype = i
+    fn = lib.raisr_gather_buckets
+    fn.argtypes = [vp, vp, vp, i, vp, f, vp, i, i, i, i, i, i, i, vp]
+    fn.restype = i
     fn = lib.raisr_hash_buckets
     fn.argtypes = [vp, vp, i, i, vp, f, vp, i, vp, i, i, i, i, f, i, vp]
     fn.restype = i

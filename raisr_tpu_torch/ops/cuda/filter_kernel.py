@@ -14,8 +14,11 @@ csrc/full_kernel.cu:
     -> `apply_filters_hash`: launch A (hash_bucket_kernel, then
     gather_resident_kernel<4, Tier::kF32, uint8_t>), which the fused pass
     runs too.
-`hash_buckets` runs the hash launch A1 alone (a uint8 bucket plane), for
-the tests and the timings of the kernel; no serving path calls it.
+`hash_buckets` runs the hash launch A1 alone (a uint8 bucket plane) and
+`gather_buckets` the gather launch A2 alone over such a plane, at every
+tier, for the tests and the timings of the kernels; no serving path calls
+them. `gather_wavefronts` counts what A2's shared-memory reads cost on a
+bucket plane (host arithmetic).
 The TPU knobs (tb2, rowbatch, mxu_passes, interpret) have no meaning here and
 are gone: the card computes plain float32 at every bit depth, so the 10-bit
 case (mxu_passes=3 on the TPU) needs nothing extra.
@@ -76,24 +79,30 @@ def check_bank_limits(qangle: int, qstrength: int, qcoherence: int,
         )
 
 
-def gather_smem_bytes(n_buckets: int, pixel_types: int) -> int:
-    """Dynamic shared memory of one block of the float32 gather launch
+def gather_smem_bytes(n_buckets: int, pixel_types: int, tier: str = "float32",
+                      hashed: bool = False) -> int:
+    """Dynamic shared memory of one block of the gather launch A2
     (csrc/full_kernel.cu GatherSmem::bytes): the phase's `n_buckets` rows,
-    taps 0..120 in an odd number of 16-byte groups (31: 496 B a row), then
-    two tile buffers for each of the block's 4 groups: the patch region of
-    16 x 32 same-phase pixels, 41 rows of 74 words for 4 phases, 26 of 42
-    for 1."""
-    row_bytes = 16 * (-(-N_TAPS // 4) | 1)
+    taps 0..120 in an odd number of 16-byte groups (31 at float32: 496 B a
+    row; 17 at the 16-bit tiers: 272 B), pcenter's float32 bias a row
+    (16-byte aligned), the slot of each bucket where the buckets are the
+    hash's (`hashed`: 256 bytes), then two tile buffers for each of the
+    block's 2 groups: the patch region of 32 x 32 same-phase pixels, 73
+    rows of 74 words for 4 phases, 42 of 42 for 1. apply_filters' launch is
+    float32 over a caller's buckets, the defaults."""
+    groups = -(-N_TAPS // (4 if tier == "float32" else 8))
+    row_bytes = 16 * (groups | 1)
+    bias = -(-n_buckets * 4 // 16) * 16 if tier == "pcenter" else 0
     step = 2 if pixel_types == 4 else 1
-    tile_rows, tile_cols = step * 15 + 11, step * 31 + 11
+    tile_rows = tile_cols = step * 31 + 11
     tile_words = tile_rows * step * (-(-tile_cols // step))
-    return n_buckets * row_bytes + 2 * 4 * tile_words * 4
+    return n_buckets * row_bytes + bias + (256 if hashed else 0) + 2 * 2 * tile_words * 4
 
 
 def check_gather_smem(n_buckets: int, pixel_types: int) -> None:
     """apply_filters' size rule: the float32 rows of one phase must fit in a
-    block's shared memory beside the tile buffers (at most 272 buckets with
-    4 phases, 398 with 1). Raises a ValueError that names the byte counts;
+    block's shared memory beside the tile buffers (at most 294 buckets with
+    4 phases, 411 with 1). Raises a ValueError that names the byte counts;
     there is no route that reads the rows from device memory instead."""
     if n_buckets < 1:
         raise ValueError(f"the bank holds no bucket of {pixel_types} pixel types")
@@ -119,6 +128,80 @@ def hash_tile_counts(h: int, w: int) -> tuple[int, int]:
     tiles = -(-h // HASH_TILE_ROWS) * -(-w // HASH_TILE_COLS)
     interior = inside(h, HASH_TILE_ROWS) * inside(w, HASH_TILE_COLS)
     return interior, tiles - interior
+
+
+def bank_slots(qangle: int, qstrength: int, qcoherence: int) -> torch.Tensor:
+    """The slot of each bucket of a hash grid: the row the gather launch A2
+    stages it at in shared memory (csrc/full_kernel.cu bank_slot). Bucket
+    (angle * qstrength + strength) * qcoherence + coherence goes to slot
+    (strength * qangle + angle) * qcoherence + coherence, so the buckets of
+    one strength lie together; int64 [qangle * qstrength * qcoherence]."""
+    b = torch.arange(qangle * qstrength * qcoherence)
+    angle, strength = b // (qstrength * qcoherence), b // qcoherence % qstrength
+    return (strength * qangle + angle) * qcoherence + b % qcoherence
+
+
+def _quarter_wavefronts(rows: torch.Tensor) -> torch.Tensor:
+    """Shared-memory wavefronts of each quarter-warp's 16-byte bank load,
+    rows [..., 8] (the shared rows its 8 lanes read): a bank row's 16-byte
+    group q lies in bank group (q -+ row) mod 8 (an odd row stride in
+    16-byte groups), so distinct rows that agree mod 8 are served one after
+    another, and equal rows are broadcasts."""
+    s, _ = torch.sort(rows, dim=-1)
+    new = torch.ones_like(s, dtype=torch.bool)
+    new[..., 1:] = s[..., 1:] != s[..., :-1]
+    per_group = torch.stack([(new & (s % 8 == g)).sum(-1) for g in range(8)], -1)
+    return per_group.amax(-1)
+
+
+def gather_wavefronts(buckets: torch.Tensor, pixel_types: int,
+                      slots: torch.Tensor | None = None, *,
+                      order: str = "kernel") -> tuple[float, float]:
+    """What the gather launch A2's shared-memory reads cost on a bucket plane
+    ([H, W], any integer dtype, every value a row of the bank): the mean
+    wavefronts of a quarter-warp's 16-byte bank load, over every load of
+    every warp (ragged tiles included: a pixel outside the plane reads
+    bucket 0, as the kernel's lanes do), and the scalar patch reads a pixel.
+    Host arithmetic, on the plane's device; no launch reads it.
+
+    A warp takes `pixels` same-phase rows of a tile, `kStep` apart (2 for 4
+    pixel types, 1 for 1), and 32 same-phase columns, a column a lane; a
+    thread reads the patch rows its pixels share once. `order`:
+      "parent": 2 pixels a thread, lane L on column L, the row of bucket b
+                at b (A2 before the lanes were ordered);
+      "kernel": 4 pixels a thread; each warp sorts its columns by the slot
+                of pixel 1's bucket (ties by column) and lane L serves the
+                L-th; bucket b's row is at slots[b] (`bank_slots` for the
+                hash's buckets; None: at b, as apply_filters stages a
+                caller's buckets)."""
+    if order not in ("parent", "kernel"):
+        raise ValueError(f"order is 'parent' or 'kernel', got {order!r}")
+    step = 2 if pixel_types == 4 else 1
+    pixels = 2 if order == "parent" else 4
+    tile_rows = 8 * pixels
+    rows_of = (slots.to(buckets.device) if slots is not None and order == "kernel"
+               else None)
+    total, loads = 0, 0
+    for pr in range(step):
+        for pc in range(step):
+            sub = buckets[pr::step, pc::step].to(torch.int64)
+            h, w = sub.shape
+            hp, wp = -(-h // tile_rows) * tile_rows, -(-w // 32) * 32
+            plane = torch.zeros((hp, wp), dtype=torch.int64, device=sub.device)
+            plane[:h, :w] = sub
+            if rows_of is not None:
+                plane = rows_of[plane]
+            # [warps, pixels, 32 lanes]
+            warps = (plane.reshape(hp // tile_rows, 8, pixels, wp // 32, 32)
+                     .permute(0, 1, 3, 2, 4).reshape(-1, pixels, 32))
+            if order == "kernel":
+                lane = torch.arange(32, device=plane.device)
+                perm = torch.argsort(warps[:, 1, :] * 32 + lane, dim=-1)
+                warps = torch.gather(warps, 2, perm[:, None, :].expand_as(warps))
+            waves = _quarter_wavefronts(warps.reshape(-1, 4, 8))
+            total += int(waves.sum())
+            loads += waves.numel()
+    return total / loads, (11 + step * (pixels - 1)) * 11 / pixels
 
 
 def _count_hash_tiles(h: int, w: int) -> None:
@@ -324,6 +407,64 @@ def hash_buckets(
         raise RuntimeError(f"raisr_hash_buckets launch failed: cudaError {err}")
     _count_hash_tiles(h, w)
     return out
+
+
+def gather_buckets(
+    cheap: torch.Tensor,  # [H, W] f32 (integer-valued)
+    buckets: torch.Tensor,  # [H, W] uint8, every value below qangle*qstrength*qcoherence
+    filters: torch.Tensor,  # [n_buckets * pixel_types, 128] f32, bf16 or int16
+    *,
+    pixel_types: int = 4,
+    qangle: int = 24,
+    qstrength: int = 3,
+    qcoherence: int = 3,
+    tier: int = 0,
+    pbias: torch.Tensor | None = None,
+    inv_scale: float | None = None,
+) -> torch.Tensor:
+    """The gather launch A2 alone over a uint8 bucket plane, the form a
+    fused pass runs on A1's plane: raw filtered plane out. `tier` is
+    csrc/full_kernel.cu's tier code (0 float32, 1 bfloat16, 2 pcenter with
+    `pbias`, 3 int8 with `inv_scale`). The CUDA kernel for a CUDA tensor,
+    apply_filters_reference for a CPU tensor; the two agree bit for bit. A
+    bucket outside the bank is refused. No serving path calls it: it is how
+    the tests and the timings reach A2's hashed form."""
+    n_buckets = qangle * qstrength * qcoherence
+    _check_phases(pixel_types)
+    check_bank_limits(qangle, qstrength, qcoherence, 0, 0)
+    if buckets.dtype != torch.uint8 or buckets.shape != cheap.shape:
+        raise ValueError(f"buckets must be a uint8 {tuple(cheap.shape)} tensor, got "
+                         f"{buckets.dtype} {tuple(buckets.shape)}")
+    if buckets.numel() and int(buckets.max()) >= n_buckets:
+        raise ValueError(f"a bucket of {int(buckets.max())} is outside the bank of "
+                         f"{n_buckets} buckets")
+    if cheap.device.type == "cpu":
+        return apply_filters_reference(cheap, buckets.to(torch.int32), filters,
+                                       pixel_types=pixel_types,
+                                       ratio=2 if pixel_types == 4 else 1,
+                                       pbias=pbias, inv_scale=inv_scale)
+    if cheap.device.type != "cuda":
+        raise ValueError(f"gather_buckets runs on cpu or cuda, not {cheap.device}")
+    _check_plane(cheap)
+    if buckets.device != cheap.device or not buckets.is_contiguous():
+        raise ValueError(f"buckets must be contiguous on {cheap.device}")
+    _check_bank(filters, cheap.device, n_buckets * pixel_types,
+                (torch.float32, torch.bfloat16, torch.int16))
+
+    from raisr_tpu_torch.ops.cuda._build import load_library
+
+    h, w = cheap.shape
+    raw = torch.empty_like(cheap)
+    dev, stream = _device_and_stream(cheap)
+    err = load_library().raisr_gather_buckets(
+        cheap.data_ptr(), buckets.data_ptr(), filters.data_ptr(), tier,
+        pbias.data_ptr() if pbias is not None else None,
+        float(inv_scale) if inv_scale is not None else 1.0,
+        raw.data_ptr(), h, w, pixel_types, qangle, qstrength, qcoherence, dev, stream,
+    )
+    if err:
+        raise RuntimeError(f"raisr_gather_buckets launch failed: cudaError {err}")
+    return raw
 
 
 def apply_filters(

@@ -3,7 +3,9 @@ versions, inside the engine's batched step, and under CUDA-graph capture:
 the fused pass (every tier: float32, bf16 at 8 bits and p_split at 10/16,
 pcenter, int8; 4 and 1 phases), launch B alone (pass_epilogue), the filter
 apply (apply_filters, 4 and 1 phases, banks of 1 to 256 buckets and the
-refusal above shared memory), launch A alone (apply_filters_hash), the
+refusal above shared memory, the largest bank it admits), launch A alone
+(apply_filters_hash), launch A2 alone over uint8 buckets (gather_buckets:
+planes that stress its lane order, the largest grid, the serving stacks), the
 engine's refusal of a bank over the CUDA pass's limits, the s8 matmul
 probe, the serving step's glue (cheap_upscale_stack, cheap_upscale_planes:
 every instance of csrc/upscale.cu against its plain version, the launches of
@@ -464,6 +466,131 @@ def test_launch_a_stacks_and_stripes(tier, pixel_types, bits):
                                                          **base))
 
 
+# -- launch A2 alone over uint8 buckets (gather_buckets): the lanes' order -------
+
+
+def _tier_bank_of(tier, pixel_types, n_buckets, seed=15):
+    """_tier_bank for a bank of n_buckets buckets."""
+    f = torch.tensor(make_filters(np.random.default_rng(seed), pixel_types, n_buckets),
+                     device=torch.device("cuda", torch.cuda.current_device()))
+    if tier == "int8":
+        q, inv_scale = fk.int8_bank(f)
+        return q, dict(inv_scale=inv_scale)
+    if tier == "float32":
+        return f, {}
+    f16 = fk.round_bf16_error_diffused(f)
+    return f16, (dict(pbias=fk.pcenter_bias(f16)) if tier == "pcenter" else {})
+
+
+def _stress_buckets(kind, h, w, pixel_types, bits, dev):
+    """uint8 bucket planes for A2's lane order: one bucket everywhere (every
+    load a broadcast); every slot in one class mod 8, pixel 1 of a thread
+    on one slot (so the sort keeps the columns' order) and the others on 8
+    distinct slots a quarter-warp, whose loads then take 8 wavefronts each;
+    uniform random over the bank; a smooth plane's own hash."""
+    step = 2 if pixel_types == 4 else 1
+    i = torch.arange(h, device=dev)[:, None] // step
+    j = torch.arange(w, device=dev)[None, :] // step
+    if kind == "one":
+        return torch.full((h, w), 121, dtype=torch.uint8, device=dev)
+    if kind == "one_class":
+        inv = torch.argsort(flk.bank_slots(24, 3, 3)).to(dev)
+        return inv[torch.where(i % 4 == 1, 3, 8 * (j % 8 + 8 * (i % 3)) + 3)].to(torch.uint8)
+    if kind == "random":
+        gen = torch.Generator(device=dev).manual_seed(h * w)
+        return torch.randint(0, 216, (h, w), generator=gen, device=dev, dtype=torch.uint8)
+    img = torch.tensor(smooth(h, w, bits=bits, seed=h + w), device=dev)
+    kw = _kw(2, bits)
+    return flk.hash_buckets_reference(img, **{k: kw[k] for k in ("k1d", "nf", "qstr", "qcoh")}
+                                      ).to(torch.uint8)
+
+
+@pytest.mark.parametrize("h,w", [(75, 203), (130, 4700)])
+@pytest.mark.parametrize("kind", ["one", "one_class", "random", "hashed"])
+@pytest.mark.parametrize("tier,pixel_types,bits", FORMS)
+def test_gather_buckets_lane_order(tier, pixel_types, bits, kind, h, w):
+    """A2 over uint8 planes that stress its lane order, on sides that are no
+    multiple of its 32 x 32 tiles, at every form, against the plain filter
+    apply: max abs error 0."""
+    dev = require_cuda()
+    img = torch.tensor(smooth(h, w, bits=bits, seed=h + w + 1), device=dev)
+    f, extra = _tier_bank(tier, pixel_types)
+    b = _stress_buckets(kind, h, w, pixel_types, bits, dev)
+    if kind == "one_class":  # the counter sees the conflicts the plane was built for
+        # (6.25 on whole tiles; ragged tiles' idle lanes read one row)
+        assert flk.gather_wavefronts(b, pixel_types, flk.bank_slots(24, 3, 3))[0] > 3
+    got = flk.gather_buckets(img, b, f, pixel_types=pixel_types, tier=fk._TIER_CODE[tier],
+                             **extra)
+    want = flk.apply_filters_reference(img, b.to(torch.int32), f, pixel_types=pixel_types,
+                                       ratio=2 if pixel_types == 4 else 1, **extra)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("tier,pixel_types,bits", FORMS)
+def test_gather_buckets_largest_grid(tier, pixel_types, bits):
+    """The largest grid A1 hands on, 256 buckets (16 x 4 x 4), random over
+    it, at every form: the slot table and its bank fit and agree."""
+    dev = require_cuda()
+    h, w = 97, 330
+    img = torch.tensor(smooth(h, w, bits=bits, seed=7), device=dev)
+    f, extra = _tier_bank_of(tier, pixel_types, 256)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b = torch.randint(0, 256, (h, w), generator=gen, device=dev).to(torch.uint8)
+    got = flk.gather_buckets(img, b, f, pixel_types=pixel_types, qangle=16, qstrength=4,
+                             qcoherence=4, tier=fk._TIER_CODE[tier], **extra)
+    want = flk.apply_filters_reference(img, b.to(torch.int32), f, pixel_types=pixel_types,
+                                       ratio=2 if pixel_types == 4 else 1, **extra)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("pixel_types", [4, 1])
+def test_apply_filters_largest_bank(pixel_types):
+    """The largest bank check_gather_smem admits (294 buckets at 4 phases,
+    411 at 1), caller buckets over it and outside it, against the plain
+    version: max abs error 0."""
+    dev = require_cuda()
+    n = 294 if pixel_types == 4 else 411
+    flk.check_gather_smem(n, pixel_types)
+    with pytest.raises(ValueError):
+        flk.check_gather_smem(n + 1, pixel_types)
+    rng = np.random.default_rng(n)
+    h, w = 133, 517
+    img = torch.tensor(smooth(h, w, seed=n), device=dev)
+    f = torch.tensor(make_filters(rng, pixel_types, n), device=dev)
+    b = torch.tensor(rng.integers(-4, n + 4, (h, w)).astype(np.int32), device=dev)
+    kw = dict(pixel_types=pixel_types, ratio=2 if pixel_types == 4 else 1)
+    got = flk.apply_filters(img, b, f, **kw)
+    bad = (b < 0) | (b >= n)
+    assert bad.any() and (got[bad] == 0).all()
+    assert torch.equal(got, flk.apply_filters_reference(img, b, f, **kw))
+
+
+def test_gather_buckets_serving_stacks():
+    """A2 alone on the serving stacks' own buckets (2x 8736 x 3840 and 1.5x
+    6552 x 2880, four seeded 1080p frames), float32 and bf16: max abs error
+    0, and it equals launch A's raw."""
+    dev = require_cuda()
+    kw = _kw(2)
+    hkw = {k: kw[k] for k in ("k1d", "nf", "qstr", "qcoh")}
+    for ratio, pixel_types in ((2, 4), (1.5, 1)):
+        stack = _serving_stack(ratio, dev)
+        b = flk.hash_buckets(stack, **hkw)
+        for tier in ("float32", "bfloat16"):
+            f, extra = _tier_bank(tier, pixel_types)
+            got = flk.gather_buckets(stack, b, f, pixel_types=pixel_types,
+                                     tier=fk._TIER_CODE[tier])
+            want = flk.apply_filters_reference(stack, b.to(torch.int32), f,
+                                               pixel_types=pixel_types,
+                                               ratio=2 if pixel_types == 4 else 1)
+            raw = torch.empty_like(stack)
+            flk._launch_hash_filter(stack, f, raw, pixel_types, **hkw, qangle=24, qstrength=3,
+                                    qcoherence=3, tier=fk._TIER_CODE[tier])
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (ratio, tier, int((got != want).sum()))
+            assert torch.equal(raw, got), (ratio, tier)
+
+
 # -- launch A1 alone (hash_buckets) -----------------------------------------------
 
 
@@ -667,7 +794,7 @@ def test_apply_filters_bank_sizes(n_buckets, pixel_types):
     assert torch.equal(got, flk.apply_filters_reference(img, b, f, **kw))
 
 
-@pytest.mark.parametrize("pixel_types,n_buckets", [(4, 273), (1, 399)])
+@pytest.mark.parametrize("pixel_types,n_buckets", [(4, 295), (1, 412)])
 def test_apply_filters_refuses_a_bank_over_shared_memory(pixel_types, n_buckets):
     """One bucket over what fits beside the tile buffers: a ValueError that
     names the byte counts, and no launch; one fewer runs."""
