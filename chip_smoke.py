@@ -585,19 +585,20 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
     for blending in (1, 2):
         errs.append(hold(
             "6 single-phase kernel", f"blending {blending}, one {out_h}x{out_w} plane",
-            fk.raisr_pass_full_single(cheap, filters, blending=blending, **kw),
-            fk.raisr_pass_full_single_reference(cheap, filters, blending=blending, **kw)))
+            fk.raisr_pass_full(cheap, filters, blending=blending, pixel_types=1, **kw),
+            fk.raisr_pass_full_reference(cheap, filters, blending=blending, pixel_types=1,
+                                         **kw)))
     # the launch of the 1.5x path: the stack of all frames, LR guard 6 rows,
     # 9 after the upscale, every row held
     lr_pad, hr_pad = 6, 6 * out_h // LR_H
     stack_lr = up.guard_band_stack(y.to(torch.float32), lr_pad)
     stack = cheap_upscale_stacked(stack_lr, N_FRAMES, LR_H, lr_pad, out_h, hr_pad, out_w, 8)
     skw = dict(kw, blending=2, frame_h=out_h, frame_pad=hr_pad)
-    got = fk.raisr_pass_full_single(stack, filters, **skw)
+    got = fk.raisr_pass_full(stack, filters, pixel_types=1, **skw)
     errs.append(hold(
         "6 single-phase kernel", f"the {N_FRAMES}-frame stack {tuple(stack.shape)} "
         f"(frame_h {out_h}, frame_pad {hr_pad})",
-        got, fk.raisr_pass_full_single_reference(stack, filters, **skw)))
+        got, fk.raisr_pass_full_reference(stack, filters, pixel_types=1, **skw)))
     stack_y = got.reshape(N_FRAMES, out_h + 2 * hr_pad, out_w)[:, hr_pad: hr_pad + out_h]
 
     # -- phase 7: the 1.5x path ------------------------------------------------
@@ -627,9 +628,9 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
     ref_engine = RaisrEngine(RaisrConfig(ratio=1.5, passes=PASSES_15X, backend="reference"),
                              model, device=dev)
     for i in range(N_FRAMES):
-        x = fk.raisr_pass_full_single_reference(
+        x = fk.raisr_pass_full_reference(
             cheap_upscale(y[i].to(torch.float32), out_h, out_w, 8), filters,
-            blending=2, **kw)
+            blending=2, pixel_types=1, **kw)
         frac, med, mx = diff_stats(oy[i], x)
         print(f"phase 7 Y frame {i} vs plain pass: differing {frac:.6%}, "
               f"median {med}, max {mx}")
@@ -655,11 +656,11 @@ def run_15x(y, u, v, dev, card: str, kw: dict, profile_dir: str | None):
         raise SystemExit("phase 8 failed")
 
     # -- phase 9: times ----------------------------------------------------------
-    dkw = dict(kw, blending=2)
-    ms_kernel = cuda_ms(lambda: fk.raisr_pass_full_single(cheap, filters, **dkw), 20, 3)
-    ms_plain = cuda_ms(lambda: fk.raisr_pass_full_single_reference(cheap, filters, **dkw), 3)
-    ms_kernel2 = cuda_ms(lambda: fk.raisr_pass_full_single(cheap, filters, **dkw), 20, 3)
-    ms_stack = cuda_ms(lambda: fk.raisr_pass_full_single(stack, filters, **skw), 10, 2)
+    dkw = dict(kw, blending=2, pixel_types=1)
+    ms_kernel = cuda_ms(lambda: fk.raisr_pass_full(cheap, filters, **dkw), 20, 3)
+    ms_plain = cuda_ms(lambda: fk.raisr_pass_full_reference(cheap, filters, **dkw), 3)
+    ms_kernel2 = cuda_ms(lambda: fk.raisr_pass_full(cheap, filters, **dkw), 20, 3)
+    ms_stack = cuda_ms(lambda: fk.raisr_pass_full(stack, filters, pixel_types=1, **skw), 10, 2)
     ms_resize = cuda_ms(lambda: cheap_upscale_stacked(
         stack_lr, N_FRAMES, LR_H, lr_pad, out_h, hr_pad, out_w, 8), 10, 2)
     ms_step = cuda_ms(lambda: engine.process_batch_device(y, u, v), 10, 2)
@@ -707,8 +708,8 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
     epilogue) against the fused pass; the refusal of a bank over shared
     memory; launch B alone (pass_epilogue) against the plain epilogue and its
     times; launch A1 alone (hash_buckets) against the plain hash, byte for
-    byte, timed on the 4K plane and both stacks beside its count of interior
-    and edge tiles (HASH_TILES); then times that split launch A into hash
+    byte, timed on the 4K plane and both stacks beside their interior and
+    edge tiles (hash_tile_counts); then times that split launch A into hash
     and gather, on smooth and patchwork content. `b_launches`: launch B's
     count on the main path. Returns four `kernels` rows."""
     import torch
@@ -791,7 +792,7 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
          finish(stack, raw_stack, out_h, 2 * lr_pad), fk.raisr_pass_full(stack, f, **skw)),
         (errs1, "staged 1.5x pass vs raisr_pass_full_single on the stack",
          finish(stack15, raw15, c15["skw"]["frame_h"], c15["skw"]["frame_pad"]),
-         fk.raisr_pass_full_single(stack15, f15, **c15["skw"])),
+         fk.raisr_pass_full(stack15, f15, pixel_types=1, **c15["skw"])),
     ):
         errs.append(hold("10 staged", label, got, want))
 
@@ -879,11 +880,8 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
     for name, x, want, hk in (("plane", cheap, buckets, hkw),
                               ("2x stack", stack, buckets_stack, hkw),
                               ("1.5x stack", stack15, buckets15, hkw15)):
-        zero(flk.HASH_TILES)
         got = flk.hash_buckets(x, **hk)
-        tiles = dict(flk.HASH_TILES)
-        if tiles != dict(zip(("interior", "edge"), flk.hash_tile_counts(*x.shape))):
-            raise SystemExit(f"phase 10 failed: A1's tile count on the {name}: {tiles}")
+        tiles = dict(zip(("interior", "edge"), flk.hash_tile_counts(*x.shape)))
         errsh.append(hold("10 hash_buckets (A1 alone)", f"the {name} {tuple(x.shape)}", got,
                           want.to(torch.uint8)))
         ms = cuda_ms(lambda: flk.hash_buckets(x, **hk), 20, 3)
@@ -920,8 +918,7 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
         for tier, fb in (("float32", bank), ("bfloat16", fk.round_bf16_error_diffused(bank))):
             errs.append(hold("10 gather_buckets (A2 alone)", f"{tier}, the {name} "
                              f"{tuple(x.shape)}",
-                             flk.gather_buckets(x, b8, fb, pixel_types=pt,
-                                                tier=fk._TIER_CODE[tier]),
+                             flk.gather_buckets(x, b8, fb, pixel_types=pt, tier=tier),
                              flk.apply_filters_reference(x, b8.to(torch.int32), fb,
                                                          pixel_types=pt,
                                                          ratio=2 if pt == 4 else 1)))
@@ -1081,7 +1078,8 @@ def run_25x(y, dev, card: str, kw: dict) -> None:
     pkw = dict(kw, qstr=tuple(float(q) for q in bank.qstr),
                qcoh=tuple(float(q) for q in bank.qcoh), blending=2)
     cheap = cheap_upscale(frame[0].to(torch.float32), out_h, out_w, 8)
-    frac, med, mx = diff_stats(oy[0], fk.raisr_pass_full_single_reference(cheap, phase0, **pkw))
+    frac, med, mx = diff_stats(oy[0], fk.raisr_pass_full_reference(cheap, phase0, pixel_types=1,
+                                                                   **pkw))
     print(f"phase 12 Y vs the plain single-phase pass on the phase-0 rows: differing "
           f"{frac:.6%}, max {mx}")
     if mx > KERNEL_MAX_ABS_ERR:
@@ -1875,8 +1873,8 @@ def run_train(dev, card: str, tmp: str, kw: dict) -> dict:
     held["full_kernel_single"] = [hold(
         "20 fused 1.5x pass", f"the held-out frame, {lr15.shape[1]}x{lr15.shape[0]} -> "
         f"{hr15.shape[1]}x{hr15.shape[0]}, "
-        f"the trained 1.5x bank", fk.raisr_pass_full_single(cheap15, f15, **kw15),
-        fk.raisr_pass_full_single_reference(cheap15, f15, **kw15))]
+        f"the trained 1.5x bank", fk.raisr_pass_full(cheap15, f15, pixel_types=1, **kw15),
+        fk.raisr_pass_full_reference(cheap15, f15, pixel_types=1, **kw15))]
 
     # -- times ------------------------------------------------------------------
     ms = cuda_ms(lambda: ne.accumulate_normal_eq(q, v, cheap, hr_t, idx), 10, 2)

@@ -168,10 +168,10 @@ class RaisrEngine:
         self._statics = pass_statics(cfg, self.model, self._backend)
         self._np_out_dtype = np.uint8 if cfg.bits == 8 else np.uint16
         self._out_dtype = torch.uint8 if cfg.bits == 8 else torch.uint16
-        # the bin edges travel as floats in self._statics; the banks are
-        # prepared for the pass once, here (phase-0 rows, the tier's bank
-        # and its extras), on the engine's device and on each mesh device,
-        # each device's preparation one span `raisr.banks`
+        # the passes are prepared once, here (phase-0 rows, the tier's bank
+        # and its extras, the fused pass's checks and launch arguments), on
+        # the engine's device and on each mesh device, each device's
+        # preparation one span `raisr.banks`
         devices = [self.device] + (self._mesh.distinct() if self._mesh else [])
         self._banks = {}
         for d in dict.fromkeys(devices):

@@ -26,9 +26,8 @@ case (mxu_passes=3 on the TPU) needs nothing extra.
 Each wrapper runs its kernel on a CUDA tensor and its plain version on a CPU
 tensor; there is no fallback. `LAUNCHES`, `SINGLE_LAUNCHES` and `HASH_LAUNCHES`
 count the calls that went through a kernel: apply_filters with 4 and with 1
-phase, and apply_filters_hash. `HASH_TILES` counts the tiles of every A1
-launch (a fused pass, apply_filters_hash, hash_buckets) by the path they
-take: "interior" (no bounds tests) and "edge" (`hash_tile_counts`).
+phase, and apply_filters_hash. `hash_tile_counts` counts A1's tiles on a
+plane by the path they take (host arithmetic).
 """
 
 from __future__ import annotations
@@ -43,7 +42,6 @@ from raisr_tpu_torch.ops.filter_apply import apply_filters_taps
 LAUNCHES = 0  # apply_filters, 4 phases, through the gather launch
 SINGLE_LAUNCHES = 0  # apply_filters, 1 phase, through the gather launch
 HASH_LAUNCHES = 0  # apply_filters_hash, through launch A
-HASH_TILES = {"interior": 0, "edge": 0}  # A1's tiles by path, over every A1 launch
 
 # A1's output tile (csrc/full_kernel.cu kHashRows, kHashCols) and how far its
 # staged window reaches past it: the tensor window's 5 and the gradient's 1
@@ -204,12 +202,6 @@ def gather_wavefronts(buckets: torch.Tensor, pixel_types: int,
     return total / loads, (11 + step * (pixels - 1)) * 11 / pixels
 
 
-def _count_hash_tiles(h: int, w: int) -> None:
-    interior, edge = hash_tile_counts(h, w)
-    HASH_TILES["interior"] += interior
-    HASH_TILES["edge"] += edge
-
-
 def _check_phases(pixel_types: int, ratio: int | None = None) -> None:
     """4 or 1 phases; given the filter apply's ratio, 4 phases only at ratio 2."""
     if pixel_types not in (4, 1):
@@ -316,12 +308,26 @@ def _check_bank(filters: torch.Tensor, device: torch.device, n_rows: int,
         )
 
 
-def _check_hash_args(k1d, qstr, qcoh, qangle, qstrength, qcoherence, patch_size) -> None:
+def _hash_launch_args(k1d, nf, qstr, qcoh, qangle, qstrength, qcoherence,
+                      patch_size=11) -> tuple:
+    """The hash's arguments in the order the two C entry points that hash
+    take them after the plane (raisr_full_hash_filter, raisr_hash_buckets):
+    k1d, nf, the strength and coherence edges each with its count, the grid
+    and qangle / pi, the sequences as ctypes float arrays (the tuple keeps
+    them alive). Raises unless the kernel takes them: patch 11, qstrength - 1
+    and qcoherence - 1 edges, check_bank_limits. A fused pass builds them
+    once; hash_buckets and apply_filters_hash a call."""
     if patch_size != 11 or len(k1d) != 11:
         raise ValueError(f"the CUDA kernel takes patch_size 11, got {patch_size}")
     if len(qstr) != qstrength - 1 or len(qcoh) != qcoherence - 1:
         raise ValueError("qstr/qcoh must hold qstrength-1 / qcoherence-1 edges")
     check_bank_limits(qangle, qstrength, qcoherence, len(qstr), len(qcoh))
+
+    def floats(values) -> ctypes.Array:
+        return (ctypes.c_float * max(len(values), 1))(*(float(v) for v in values))
+
+    return (floats(k1d), float(nf), floats(qstr), len(qstr), floats(qcoh), len(qcoh),
+            qangle, qstrength, qcoherence, float(qangle / hashing.PI))
 
 
 def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
@@ -329,38 +335,33 @@ def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
     return dev, torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _floats(values) -> ctypes.Array:
-    return (ctypes.c_float * max(len(values), 1))(*(float(v) for v in values))
+# each tier's code in csrc/full_kernel.cu, read only by the two C calls that
+# take one (raisr_full_hash_filter, raisr_gather_buckets)
+_TIER_CODE = {"float32": 0, "bfloat16": 1, "pcenter": 2, "int8": 3}
 
 
-def _launch_hash_filter(cheap, filters, raw, pixel_types, *, k1d, nf, qstr, qcoh,
-                        qangle, qstrength, qcoherence, tier: int = 0,
-                        pbias: torch.Tensor | None = None,
+def _launch_hash_filter(cheap, filters, raw, pixel_types, hash_args: tuple,
+                        tier: str = "float32", pbias: torch.Tensor | None = None,
                         inv_scale: float | None = None) -> None:
     """Launch A (the hash into a uint8 bucket plane, then the gather with
     the phase's bank resident in shared memory) on the current stream;
     raises if a launch fails or the gather cannot get its shared memory.
-    `tier` is csrc/full_kernel.cu's tier code (0 float32, 1 bfloat16,
-    2 pcenter with `pbias`, 3 int8 with `inv_scale`). The arguments are
-    checked by the caller."""
+    `hash_args` come from _hash_launch_args; `tier` is a tier of
+    ops/cuda/full_kernel.py (pcenter with `pbias`, int8 with `inv_scale`).
+    The arguments are checked by the caller."""
     from raisr_tpu_torch.ops.cuda._build import load_library
 
     h, w = cheap.shape
     buckets = torch.empty((h, w), dtype=torch.uint8, device=cheap.device)
     dev, stream = _device_and_stream(cheap)
-    k1d_c, qstr_c, qcoh_c = _floats(k1d), _floats(qstr), _floats(qcoh)
     err = load_library().raisr_full_hash_filter(
-        cheap.data_ptr(), filters.data_ptr(), tier,
+        cheap.data_ptr(), filters.data_ptr(), _TIER_CODE[tier],
         pbias.data_ptr() if pbias is not None else None,
         float(inv_scale) if inv_scale is not None else 1.0,
-        raw.data_ptr(), buckets.data_ptr(), h, w, pixel_types,
-        ctypes.addressof(k1d_c), float(nf),
-        ctypes.addressof(qstr_c), len(qstr), ctypes.addressof(qcoh_c), len(qcoh),
-        qangle, qstrength, qcoherence, float(qangle / hashing.PI), dev, stream,
+        raw.data_ptr(), buckets.data_ptr(), h, w, pixel_types, *hash_args, dev, stream,
     )
     if err:
         raise RuntimeError(f"raisr_full_hash_filter launch failed: cudaError {err}")
-    _count_hash_tiles(h, w)
 
 
 # -- the wrappers -----------------------------------------------------------
@@ -383,9 +384,9 @@ def hash_buckets(
     for byte. At most MAX_BUCKETS buckets and MAX_EDGES edges on every
     device. No serving path calls it: it is how the tests and the timings
     reach the kernel."""
-    _check_hash_args(k1d, qstr, qcoh, qangle, qstrength, qcoherence, 11)
     kw = dict(k1d=k1d, nf=nf, qstr=qstr, qcoh=qcoh, qangle=qangle,
               qstrength=qstrength, qcoherence=qcoherence)
+    hash_args = _hash_launch_args(**kw)
     if cheap.device.type == "cpu":
         return hash_buckets_reference(cheap, **kw).to(torch.uint8)
     if cheap.device.type != "cuda":
@@ -397,15 +398,10 @@ def hash_buckets(
     h, w = cheap.shape
     out = torch.empty((h, w), dtype=torch.uint8, device=cheap.device)
     dev, stream = _device_and_stream(cheap)
-    k1d_c, qstr_c, qcoh_c = _floats(k1d), _floats(qstr), _floats(qcoh)
     err = load_library().raisr_hash_buckets(
-        cheap.data_ptr(), out.data_ptr(), h, w, ctypes.addressof(k1d_c), float(nf),
-        ctypes.addressof(qstr_c), len(qstr), ctypes.addressof(qcoh_c), len(qcoh),
-        qangle, qstrength, qcoherence, float(qangle / hashing.PI), dev, stream,
-    )
+        cheap.data_ptr(), out.data_ptr(), h, w, *hash_args, dev, stream)
     if err:
         raise RuntimeError(f"raisr_hash_buckets launch failed: cudaError {err}")
-    _count_hash_tiles(h, w)
     return out
 
 
@@ -418,14 +414,14 @@ def gather_buckets(
     qangle: int = 24,
     qstrength: int = 3,
     qcoherence: int = 3,
-    tier: int = 0,
+    tier: str = "float32",
     pbias: torch.Tensor | None = None,
     inv_scale: float | None = None,
 ) -> torch.Tensor:
     """The gather launch A2 alone over a uint8 bucket plane, the form a
-    fused pass runs on A1's plane: raw filtered plane out. `tier` is
-    csrc/full_kernel.cu's tier code (0 float32, 1 bfloat16, 2 pcenter with
-    `pbias`, 3 int8 with `inv_scale`). The CUDA kernel for a CUDA tensor,
+    fused pass runs on A1's plane: raw filtered plane out. `tier` is a tier
+    of ops/cuda/full_kernel.py (pcenter with `pbias`, int8 with
+    `inv_scale`). The CUDA kernel for a CUDA tensor,
     apply_filters_reference for a CPU tensor; the two agree bit for bit. A
     bucket outside the bank is refused. No serving path calls it: it is how
     the tests and the timings reach A2's hashed form."""
@@ -457,7 +453,7 @@ def gather_buckets(
     raw = torch.empty_like(cheap)
     dev, stream = _device_and_stream(cheap)
     err = load_library().raisr_gather_buckets(
-        cheap.data_ptr(), buckets.data_ptr(), filters.data_ptr(), tier,
+        cheap.data_ptr(), buckets.data_ptr(), filters.data_ptr(), _TIER_CODE[tier],
         pbias.data_ptr() if pbias is not None else None,
         float(inv_scale) if inv_scale is not None else 1.0,
         raw.data_ptr(), h, w, pixel_types, qangle, qstrength, qcoherence, dev, stream,
@@ -550,11 +546,11 @@ def apply_filters_hash(
         raise ValueError(f"apply_filters_hash runs on cpu or cuda, not {cheap.device}")
     _check_plane(cheap)
     _check_bank(filters, cheap.device, qangle * qstrength * qcoherence * 4)
-    _check_hash_args(k1d, qstr, qcoh, qangle, qstrength, qcoherence, patch_size)
+    hash_args = _hash_launch_args(patch_size=patch_size, **kw)
     if patch_margin != 5:
         raise ValueError(f"the CUDA kernel takes patch_margin 5, got {patch_margin}")
     raw = torch.empty_like(cheap)
-    _launch_hash_filter(cheap, filters, raw, 4, **kw)
+    _launch_hash_filter(cheap, filters, raw, 4, hash_args)
     global HASH_LAUNCHES
     HASH_LAUNCHES += 1
     return raw

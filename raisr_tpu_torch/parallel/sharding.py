@@ -45,6 +45,7 @@ import functools
 import numpy as np
 import torch
 
+from raisr_tpu_torch.ops.cuda.full_kernel import FusedPass
 from raisr_tpu_torch.ops.pipeline import (
     PassBank,
     PassStatics,
@@ -146,7 +147,7 @@ def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def process_batch_dp(
     batch_lr: torch.Tensor,
-    banks: dict[torch.device, tuple[PassBank, ...]],
+    banks: dict[torch.device, tuple[FusedPass | PassBank, ...]],
     statics: PassStatics,
     passes: int,
     two_pass_mode: int,
@@ -241,7 +242,7 @@ def _upscale_stripe(
 
 def _raisr_pass_stripe(
     cheap_ext: torch.Tensor,
-    bank: PassBank,
+    bank: FusedPass | PassBank,
     statics: PassStatics,
     hr_halo: int,
     core_rows: int,
@@ -251,7 +252,7 @@ def _raisr_pass_stripe(
 ) -> torch.Tensor:
     """One RAISR pass on stripe `idx` with halo; returns its core rows.
     ops/pipeline.raisr_pass with the stripe's global first row and the
-    frame's height, so every tier's bank and extras (PassBank) and every
+    frame's height, so every tier's pass (FusedPass) and every
     backend reach the stripe exactly as they reach a whole frame."""
     g_start = idx * core_rows - hr_halo  # global row of cheap_ext[0]
     out = raisr_pass(cheap_ext, bank, statics, pass_idx, row0=g_start, zone_h=total_h)
@@ -348,7 +349,7 @@ def _gather(stripes: list[torch.Tensor], device: torch.device) -> torch.Tensor:
 
 def process_plane_row_sharded(
     lr: torch.Tensor,
-    banks: dict[torch.device, tuple[PassBank, ...]],
+    banks: dict[torch.device, tuple[FusedPass | PassBank, ...]],
     statics: PassStatics,
     passes: int,
     two_pass_mode: int,
@@ -367,7 +368,7 @@ def process_plane_row_sharded(
 
 def process_batch_2d(
     batch_lr: torch.Tensor,
-    banks: dict[torch.device, tuple[PassBank, ...]],
+    banks: dict[torch.device, tuple[FusedPass | PassBank, ...]],
     statics: PassStatics,
     passes: int,
     two_pass_mode: int,

@@ -145,8 +145,8 @@ def test_single_kernel_matches_plain_version(blending, h, w):
     img = torch.tensor(smooth(h, w, seed=h + w + 1), device=dev)
     f = torch.tensor(make_filters(np.random.default_rng(4), 1), device=dev)
     before = dict(fk.LAUNCHES)
-    got = fk.raisr_pass_full_single(img, f, **_kw(blending))
-    want = fk.raisr_pass_full_single_reference(img, f, **_kw(blending))
+    got = fk.raisr_pass_full(img, f, pixel_types=1, **_kw(blending))
+    want = fk.raisr_pass_full_reference(img, f, pixel_types=1, **_kw(blending))
     torch.cuda.synchronize()
     before[("float32", 1)] += 1
     assert fk.LAUNCHES == before
@@ -162,13 +162,13 @@ def test_single_kernel_stack_equals_per_frame():
     f = torch.tensor(make_filters(np.random.default_rng(5), 1), device=dev)
     frames = [smooth(h, w, seed=70 + i) for i in range(3)]
     stack = np.concatenate([np.pad(x, ((pad, pad), (0, 0)), mode="edge") for x in frames])
-    tall = fk.raisr_pass_full_single(torch.tensor(stack, device=dev), f, frame_h=h,
-                                     frame_pad=pad, **_kw(2))
-    assert torch.equal(tall, fk.raisr_pass_full_single_reference(
-        torch.tensor(stack, device=dev), f, frame_h=h, frame_pad=pad, **_kw(2)))
+    tall = fk.raisr_pass_full(torch.tensor(stack, device=dev), f, frame_h=h,
+                              frame_pad=pad, pixel_types=1, **_kw(2))
+    assert torch.equal(tall, fk.raisr_pass_full_reference(
+        torch.tensor(stack, device=dev), f, frame_h=h, frame_pad=pad, pixel_types=1, **_kw(2)))
     period = h + 2 * pad
     for i, x in enumerate(frames):
-        single = fk.raisr_pass_full_single(torch.tensor(x, device=dev), f, **_kw(2))
+        single = fk.raisr_pass_full(torch.tensor(x, device=dev), f, pixel_types=1, **_kw(2))
         assert torch.equal(tall[i * period + pad: i * period + pad + h], single), i
 
 
@@ -434,8 +434,8 @@ def test_launch_a_raw_matches_plain_version(tier, pixel_types, bits, kind):
     if kind == "spread":
         assert n_buckets >= 200, n_buckets
     raw = torch.empty_like(img)
-    flk._launch_hash_filter(img, f, raw, pixel_types, **hkw, qangle=24, qstrength=3,
-                            qcoherence=3, tier=fk._TIER_CODE[tier], **extra)
+    flk._launch_hash_filter(img, f, raw, pixel_types, flk._hash_launch_args(
+        **hkw, qangle=24, qstrength=3, qcoherence=3), tier, **extra)
     want = flk.apply_filters_reference(img, buckets, f, pixel_types=pixel_types,
                                        ratio=2 if pixel_types == 4 else 1, **extra)
     torch.cuda.synchronize()
@@ -519,8 +519,7 @@ def test_gather_buckets_lane_order(tier, pixel_types, bits, kind, h, w):
     if kind == "one_class":  # the counter sees the conflicts the plane was built for
         # (6.25 on whole tiles; ragged tiles' idle lanes read one row)
         assert flk.gather_wavefronts(b, pixel_types, flk.bank_slots(24, 3, 3))[0] > 3
-    got = flk.gather_buckets(img, b, f, pixel_types=pixel_types, tier=fk._TIER_CODE[tier],
-                             **extra)
+    got = flk.gather_buckets(img, b, f, pixel_types=pixel_types, tier=tier, **extra)
     want = flk.apply_filters_reference(img, b.to(torch.int32), f, pixel_types=pixel_types,
                                        ratio=2 if pixel_types == 4 else 1, **extra)
     torch.cuda.synchronize()
@@ -538,7 +537,7 @@ def test_gather_buckets_largest_grid(tier, pixel_types, bits):
     gen = torch.Generator(device=dev).manual_seed(3)
     b = torch.randint(0, 256, (h, w), generator=gen, device=dev).to(torch.uint8)
     got = flk.gather_buckets(img, b, f, pixel_types=pixel_types, qangle=16, qstrength=4,
-                             qcoherence=4, tier=fk._TIER_CODE[tier], **extra)
+                             qcoherence=4, tier=tier, **extra)
     want = flk.apply_filters_reference(img, b.to(torch.int32), f, pixel_types=pixel_types,
                                        ratio=2 if pixel_types == 4 else 1, **extra)
     assert torch.equal(got, want), int((got != want).sum())
@@ -578,14 +577,13 @@ def test_gather_buckets_serving_stacks():
         b = flk.hash_buckets(stack, **hkw)
         for tier in ("float32", "bfloat16"):
             f, extra = _tier_bank(tier, pixel_types)
-            got = flk.gather_buckets(stack, b, f, pixel_types=pixel_types,
-                                     tier=fk._TIER_CODE[tier])
+            got = flk.gather_buckets(stack, b, f, pixel_types=pixel_types, tier=tier)
             want = flk.apply_filters_reference(stack, b.to(torch.int32), f,
                                                pixel_types=pixel_types,
                                                ratio=2 if pixel_types == 4 else 1)
             raw = torch.empty_like(stack)
-            flk._launch_hash_filter(stack, f, raw, pixel_types, **hkw, qangle=24, qstrength=3,
-                                    qcoherence=3, tier=fk._TIER_CODE[tier])
+            flk._launch_hash_filter(stack, f, raw, pixel_types, flk._hash_launch_args(
+                **hkw, qangle=24, qstrength=3, qcoherence=3), tier)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (ratio, tier, int((got != want).sum()))
             assert torch.equal(raw, got), (ratio, tier)
@@ -638,21 +636,17 @@ def _a1_plane(kind, dev):
                                   "misaligned", "stripe", "stack2x", "stack15x", "flat",
                                   "spread", "spread16"])
 def test_hash_buckets_equal_plain_hash(kind):
-    """A1 alone: the uint8 bucket plane equals the plain hash byte for byte,
-    and HASH_TILES counts the plane's interior and edge tiles."""
+    """A1 alone: the uint8 bucket plane equals the plain hash byte for
+    byte."""
     dev = require_cuda()
     img = _a1_plane(kind, dev)
     hkw = {k: v for k, v in _kw(2, 16 if kind == "spread16" else 8).items()
            if k in ("k1d", "nf", "qstr", "qcoh")}
-    before = dict(flk.HASH_TILES)
     got = flk.hash_buckets(img, **hkw)
     want = flk.hash_buckets_reference(img, **hkw).to(torch.uint8)
     torch.cuda.synchronize()
     assert got.dtype == torch.uint8 and got.shape == img.shape
     assert torch.equal(got, want), int((got != want).sum())
-    interior, edge = flk.hash_tile_counts(*img.shape)
-    assert (flk.HASH_TILES["interior"] - before["interior"],
-            flk.HASH_TILES["edge"] - before["edge"]) == (interior, edge)
 
 
 @pytest.mark.parametrize("qangle,qstr,qcoh", [
@@ -1245,6 +1239,60 @@ def test_stripe_launch_on_the_card(dtype, bits, ratio):
     launch = fk.raisr_pass_full(ext, b.filters, **kw)
     assert torch.equal(launch, fk.raisr_pass_full_reference(ext, b.filters, **kw))
     assert torch.equal(launch[sh.HR_HALO: sh.HR_HALO + hs], got[hs: 2 * hs])
+
+
+# the engine's configuration of each (tier, phases) form of the fused pass
+_ENGINE_FORMS = {
+    ("float32", 4): dict(), ("float32", 1): dict(ratio=1.5),
+    ("bfloat16", 4): dict(dtype="bfloat16"), ("bfloat16", 1): dict(ratio=1.5, dtype="bfloat16"),
+    ("pcenter", 4): dict(dtype="bfloat16", bits=10), ("int8", 4): dict(dtype="int8"),
+}
+
+
+@pytest.mark.parametrize("tier,pixel_types", sorted(fk.LAUNCHES))
+def test_engine_passes_derive_nothing_after_construction(monkeypatch, tier, pixel_types):
+    """After construction the engine's fused passes derive nothing on the
+    card: with the Gaussian kernel, the normalization factor, the tier,
+    phase, bank and edge checks and the hash-argument builder all raising,
+    process_batch_device, its CUDA graph and a rows=2 striped pass run on,
+    a counted pass a pass, and give the same outputs bit for bit."""
+    from raisr_tpu_torch.ops import pipeline
+    from raisr_tpu_torch.parallel import make_mesh
+    from raisr_tpu_torch.parallel import sharding as sh
+
+    dev = require_cuda()
+    cfg = RaisrConfig(passes=2, **_ENGINE_FORMS[tier, pixel_types])
+    eng = RaisrEngine(cfg, _model(2, seed=31, pixel_types=pixel_types), device=dev)
+    assert eng._statics.tier == tier
+    y = torch.tensor(smooth_frames(2, 64, 96, bits=cfg.bits, seed=32), device=dev)
+    out_h, out_w = cfg.output_size(64, 96)
+    mesh = make_mesh(2, ("rows",), devices=[dev] * 2)
+
+    def run():
+        oy = eng.process_batch_device(y)[0]
+        striped = sh.process_plane_row_sharded(y[0].to(torch.float32), eng._banks,
+                                               eng._statics, 2, cfg.two_pass_mode, out_h,
+                                               out_w, mesh)
+        torch.cuda.synchronize()
+        return oy, striped
+
+    want = run()
+
+    def derived(*a, **k):
+        raise AssertionError("a pass derived what its construction prepared")
+
+    for module, name in ((pipeline, "gaussian_kernel_1d"), (pipeline, "normalization_factor"),
+                         (fk, "_check_tier"), (fk, "_check_phases"), (fk, "_check_bank"),
+                         (fk, "_hash_launch_args"), (flk, "_hash_launch_args"),
+                         (flk, "check_bank_limits")):
+        monkeypatch.setattr(module, name, derived)
+    _zero(fk.LAUNCHES)
+    got = run()
+    # two stacked passes, then two passes over each of two stripes
+    assert fk.LAUNCHES == {k: 6 if k == (tier, pixel_types) else 0 for k in fk.LAUNCHES}
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[1], eng.upscale_y(y[0].to(torch.float32)))
+    assert torch.equal(_graph_step(eng, y, None)[0], want[0])
 
 
 @pytest.mark.parametrize("tier,dtype", [(0, "float32"), (1, "bfloat16"), (2, "int8")])

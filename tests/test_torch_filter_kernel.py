@@ -166,8 +166,8 @@ def test_wrappers_refuse():
     # launch A hands each bucket on as one byte
     kw = _hash_kw()
     with pytest.raises(ValueError, match="at most 256 buckets"):
-        flk._check_hash_args(kw["k1d"], kw["qstr"], kw["qcoh"], 30, 3, 3, 11)
-    flk._check_hash_args(kw["k1d"], kw["qstr"], kw["qcoh"], 24, 3, 3, 11)
+        flk._hash_launch_args(kw["k1d"], kw["nf"], kw["qstr"], kw["qcoh"], 30, 3, 3)
+    flk._hash_launch_args(kw["k1d"], kw["nf"], kw["qstr"], kw["qcoh"], 24, 3, 3)
 
 
 # -- ROADMAP C9: a 4-phase (2x) bank at 2.5x --------------------------------
@@ -239,4 +239,5 @@ def test_25x_fused_engine_is_the_single_phase_pass_on_phase0_rows(yuv25):
               qcoh=tuple(float(v) for v in tm.banks[0].qcoh), blending=2)
     for i in range(y.shape[0]):
         cheap = cheap_upscale(y[i].to(torch.float32), 60, 80, 8)
-        assert torch.equal(oy[i], fk.raisr_pass_full_single_reference(cheap, f0, **kw)), i
+        assert torch.equal(oy[i], fk.raisr_pass_full_reference(cheap, f0, pixel_types=1,
+                                                               **kw)), i

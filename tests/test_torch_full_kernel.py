@@ -25,8 +25,11 @@ import torch
 
 from raisr_tpu.model.gaussian import gaussian_kernel_1d, normalization_factor
 from raisr_tpu.ops.pallas.full_kernel import raisr_pass_pallas_full
+from raisr_tpu_torch import RaisrConfig, RaisrEngine
+from raisr_tpu_torch.model.loader import from_jax_model
+from raisr_tpu_torch.ops import pipeline
 from raisr_tpu_torch.ops.cuda import full_kernel as fk
-from torch_port_util import frac_and_median, make_jax_model, smooth
+from torch_port_util import frac_and_median, make_jax_model, smooth, smooth_frames
 
 MAX_FRAC = 0.005
 
@@ -132,13 +135,24 @@ def _tier_bank(tier, filters, pixel_types):
 @pytest.mark.parametrize("tier,pixel_types", sorted(fk.LAUNCHES))
 def test_wrapper_takes_each_tier_with_its_bank(bank, tier, pixel_types):
     """The caller names the tier; on the CPU each (tier, phases) form runs
-    the plain version over the tier's bank and counts no launch."""
+    the plain version over the tier's bank and counts no launch. A
+    FusedPass prepared from the float32 bank holds the tier's bank and
+    extras and gives the same pass."""
     img = torch.from_numpy(smooth(24, 40, seed=7))
     f, extra = _tier_bank(tier, torch.from_numpy(bank.filters), pixel_types)
     kw = dict(_kw(bank, 2), pixel_types=pixel_types, tier=tier, **extra)
     before = dict(fk.LAUNCHES)
     out = fk.raisr_pass_full(img, f, **kw)
     assert torch.equal(out, fk.raisr_pass_full_reference(img, f, **kw))
+    f32 = torch.from_numpy(bank.filters)
+    prepared = fk.FusedPass.prepare(f32 if pixel_types == 4 else f32[0::4].contiguous(),
+                                    **dict(_kw(bank, 2), pixel_types=pixel_types, tier=tier))
+    assert prepared.filters.dtype == f.dtype and torch.equal(prepared.filters, f)
+    assert (prepared.pbias is None) == ("pbias" not in extra)
+    if "pbias" in extra:
+        assert torch.equal(prepared.pbias, extra["pbias"])
+    assert prepared.inv_scale == extra.get("inv_scale")
+    assert torch.equal(prepared(img), out)
     assert fk.LAUNCHES == before
 
 
@@ -168,6 +182,43 @@ def test_wrapper_refuses_a_bank_of_another_tier(bank, tier, bank_tier, pixel_typ
             fk.raisr_pass_full(torch.zeros((24, 40), device=dev), f, tier=tier, **kw)
     with pytest.raises(ValueError, match=match):
         fk.raisr_pass_full_reference(torch.zeros((24, 40)), f, tier=tier, **kw)
+
+
+# the engine's configuration of each (tier, phases) form of the fused pass
+_ENGINE_FORMS = {
+    ("float32", 4): dict(), ("float32", 1): dict(ratio=1.5),
+    ("bfloat16", 4): dict(dtype="bfloat16"), ("bfloat16", 1): dict(ratio=1.5, dtype="bfloat16"),
+    ("pcenter", 4): dict(dtype="bfloat16", bits=10), ("int8", 4): dict(dtype="int8"),
+}
+
+
+@pytest.mark.parametrize("tier,pixel_types", sorted(fk.LAUNCHES))
+def test_engine_passes_derive_nothing_after_construction(monkeypatch, tier, pixel_types):
+    """The engine prepares its fused passes once: with the Gaussian kernel
+    and the normalization factor unreachable from ops/pipeline after
+    construction, process_batch_device and the rows=2 striped upscale_y run
+    on and give the same outputs bit for bit."""
+    form = _ENGINE_FORMS[tier, pixel_types]
+    cfg = RaisrConfig(passes=2, backend="pallas", **form)
+    model = from_jax_model(make_jax_model(passes=2, seed=31, pixel_types=pixel_types))
+    eng = RaisrEngine(cfg, model, device="cpu")
+    rows = RaisrEngine(cfg, model, shard="rows=2", device="cpu")
+    assert eng._statics.tier == tier and eng._statics.pixel_types == pixel_types
+    y = torch.from_numpy(smooth_frames(2, 32, 40, bits=cfg.bits, seed=32))
+
+    def run():
+        return eng.process_batch_device(y)[0], rows.upscale_y(y[0].to(torch.float32))
+
+    want = run()
+
+    def derived(*a, **k):
+        raise AssertionError("a pass derived what its construction prepared")
+
+    monkeypatch.setattr(pipeline, "gaussian_kernel_1d", derived)
+    monkeypatch.setattr(pipeline, "normalization_factor", derived)
+    got = run()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[1], eng.upscale_y(y[0].to(torch.float32)))
 
 
 def test_wrapper_refuses_other_devices(bank):

@@ -1,5 +1,5 @@
-"""The port's single-phase fused pass (raisr_pass_full_single and its plain
-PyTorch version) held against raisr_tpu's single-phase Pallas kernel
+"""The port's single-phase fused pass (raisr_pass_full with pixel_types=1 and
+its plain PyTorch version) held against raisr_tpu's single-phase Pallas kernel
 (raisr_pass_pallas_full_single), run in interpret mode on the CPU.
 
 Tolerance: at most 0.5% of pixels differ, median difference 0, as for the
@@ -53,8 +53,8 @@ def test_plain_version_matches_jax_kernel(bank, blending, h, w):
     kw = _kw(bank, blending)
     ref = np.asarray(raisr_pass_pallas_full_single(
         jnp.asarray(img), jnp.asarray(bank.filters), interpret=True, **kw))
-    out = fk.raisr_pass_full_single_reference(
-        torch.from_numpy(img), torch.from_numpy(bank.filters), **kw).numpy()
+    out = fk.raisr_pass_full_reference(
+        torch.from_numpy(img), torch.from_numpy(bank.filters), pixel_types=1, **kw).numpy()
     assert out.shape == (h, w) and np.isfinite(out).all()
 
     first, last = (6, h - 7) if blending == 1 else (1, h - 2)
@@ -85,14 +85,14 @@ def test_stacked_frames(bank):
         jnp.asarray(stack), jnp.asarray(bank.filters), frame_h=h,
         frame_pad=pad, interpret=True, **kw))
     f = torch.from_numpy(bank.filters)
-    out = fk.raisr_pass_full_single_reference(
-        torch.from_numpy(stack), f, frame_h=h, frame_pad=pad, **kw).numpy()
+    out = fk.raisr_pass_full_reference(
+        torch.from_numpy(stack), f, frame_h=h, frame_pad=pad, pixel_types=1, **kw).numpy()
     frac, med = frac_and_median(out, ref)
     assert frac <= MAX_FRAC and med == 0.0, (frac, med)
 
     period = h + 2 * pad
     for i, img in enumerate(frames):
-        single = fk.raisr_pass_full_single_reference(torch.from_numpy(img), f, **kw)
+        single = fk.raisr_pass_full_reference(torch.from_numpy(img), f, pixel_types=1, **kw)
         got = out[i * period + pad: i * period + pad + h]
         assert np.array_equal(got, single.numpy()), i
 
@@ -100,10 +100,10 @@ def test_stacked_frames(bank):
 def test_single_wrapper_on_cpu_runs_plain_version(bank):
     img = torch.from_numpy(smooth(24, 40, seed=5))
     f = torch.from_numpy(bank.filters)
-    kw = _kw(bank, 2)
+    kw = dict(_kw(bank, 2), pixel_types=1)
     before = dict(fk.LAUNCHES)
-    out = fk.raisr_pass_full_single(img, f, **kw)
-    assert torch.equal(out, fk.raisr_pass_full_single_reference(img, f, **kw))
+    out = fk.raisr_pass_full(img, f, **kw)
+    assert torch.equal(out, fk.raisr_pass_full_reference(img, f, **kw))
     assert fk.LAUNCHES == before  # no kernel launch
 
 
@@ -114,17 +114,18 @@ def test_single_phase_picks_bucket_rows(bank):
     kw = _kw(bank, 1)
     f1 = torch.from_numpy(bank.filters)
     f4 = f1.repeat_interleave(4, dim=0).contiguous()
-    assert torch.equal(fk.raisr_pass_full_single_reference(img, f1, **kw),
+    assert torch.equal(fk.raisr_pass_full_reference(img, f1, pixel_types=1, **kw),
                        fk.raisr_pass_full_reference(img, f4, **kw))
 
 
 def test_wrapper_refuses_bad_phase_counts_and_banks(bank):
+    """A plane off the pass's device is refused, and a phase count or bank
+    shape the kernel does not take by the checks a pass runs on a CUDA
+    device when it is built."""
     img = torch.empty((24, 40), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
-        fk.raisr_pass_full_single(img, torch.from_numpy(bank.filters), **_kw(bank, 2))
+        fk.raisr_pass_full(img, torch.from_numpy(bank.filters), pixel_types=1, **_kw(bank, 2))
     with pytest.raises(ValueError, match="4 or 1 pixel types"):
-        fk._check(img, torch.from_numpy(bank.filters), gaussian_kernel_1d(11),
-                  bank.qstr, bank.qcoh, 24, 3, 3, 11, 2, pixel_types=9)
+        fk._check_phases(9)
     with pytest.raises(ValueError, match=r"\[216, 128\]"):
-        fk._check(torch.zeros(24, 40), torch.zeros(864, 128), gaussian_kernel_1d(11),
-                  bank.qstr, bank.qcoh, 24, 3, 3, 11, 2, pixel_types=1)
+        fk._check_bank(torch.zeros(864, 128), torch.device("cpu"), 216, (torch.float32,))

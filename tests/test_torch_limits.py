@@ -59,10 +59,10 @@ def test_check_bank_limits(dims, edges, match):
         return
     with pytest.raises(ValueError, match=match):
         flk.check_bank_limits(*dims, *edges)
-    # the kernel wrappers' own check is the same function
+    # the kernel wrappers' builder of the hash's arguments runs the same check
     k1d = (0.0,) * 11
     with pytest.raises(ValueError, match=match):
-        flk._check_hash_args(k1d, (0.0,) * edges[0], (0.0,) * edges[1], *dims, 11)
+        flk._hash_launch_args(k1d, 1.0, (0.0,) * edges[0], (0.0,) * edges[1], *dims)
 
 
 @pytest.mark.parametrize("dims,match", [
@@ -183,20 +183,18 @@ def test_hash_tile_counts_of_the_serving_stacks():
 
 
 def test_hash_buckets_on_cpu_is_the_plain_hash_in_bytes():
-    """On a CPU tensor hash_buckets runs the plain hash, as uint8, launches
-    nothing and counts no tile; it takes the CUDA kernel's bucket and edge
-    limits on every device."""
+    """On a CPU tensor hash_buckets runs the plain hash, as uint8, and
+    launches nothing; it takes the CUDA kernel's bucket and edge limits on
+    every device."""
     from raisr_tpu_torch.model.gaussian import gaussian_kernel_1d, normalization_factor
     from torch_port_util import QCOH, QSTR
 
     img = torch.from_numpy(smooth(40, 70, seed=9))
     hkw = dict(k1d=tuple(float(v) for v in gaussian_kernel_1d(11)),
                nf=normalization_factor(8), qstr=QSTR, qcoh=QCOH)
-    before = dict(flk.HASH_TILES)
     got = flk.hash_buckets(img, **hkw)
     assert got.dtype == torch.uint8
     assert torch.equal(got, flk.hash_buckets_reference(img, **hkw).to(torch.uint8))
-    assert flk.HASH_TILES == before
     with pytest.raises(ValueError, match="at most 256 buckets"):
         flk.hash_buckets(img, **hkw, qangle=30)
 
@@ -333,7 +331,7 @@ def test_gather_buckets_on_cpu_is_the_plain_filter_apply(tier):
         f, inv = fk.int8_bank(f)
         extra = dict(inv_scale=inv)
     b = torch.from_numpy(rng.integers(0, 216, (30, 44)).astype(np.uint8))
-    got = flk.gather_buckets(img, b, f, tier=fk._TIER_CODE[tier], **extra)
+    got = flk.gather_buckets(img, b, f, tier=tier, **extra)
     want = flk.apply_filters_reference(img, b.to(torch.int32), f, **extra)
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="outside the bank"):
