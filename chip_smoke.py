@@ -46,7 +46,9 @@ then the filter kernels, the bf16 tier and the 2.5x route:
      that does not fit in shared memory; holds launch B alone
      (pass_epilogue) against the plain epilogue on the 4K plane, both
      stacks and a row stripe, for both blendings, and times it on the plane
-     and the 2x stack beside its bound; times the plain hash, apply_filters,
+     and the 2x stack beside its bound; holds and times its packed store
+     (uint8 and uint16 frames, the batched step's last pass) on the 2x
+     stack against float32 out then pack_planes; times the plain hash, apply_filters,
      apply_filters_hash and the fused pass on a smooth 4K plane, the
      patchwork plane and the stack, prints the device time of each kernel
      of one fused pass (launch A1 the hash, A2 the gather from the resident
@@ -184,6 +186,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -707,7 +710,8 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
     patchwork plane); the staged pass (apply_filters, then the plain
     epilogue) against the fused pass; the refusal of a bank over shared
     memory; launch B alone (pass_epilogue) against the plain epilogue and its
-    times; launch A1 alone (hash_buckets) against the plain hash, byte for
+    times, and its packed store on the 2x stack against float32 out and
+    pack_planes, both timed; launch A1 alone (hash_buckets) against the plain hash, byte for
     byte, timed on the 4K plane and both stacks beside their interior and
     edge tiles (hash_tile_counts); then times that split launch A into hash
     and gather, on smooth and patchwork content. `b_launches`: launch B's
@@ -872,6 +876,32 @@ def run_filter(y, dev, card: str, model, kw: dict, c15: dict, b_launches: int) -
               f"CountOfBitsChanged {tb[name, 2]:.4f} ms, Randomness {tb[name, 1]:.4f} ms, "
               f"plain {tb[name, 'plain']:.3f} ms, bound {tb[name, 'bound']:.4f} ms (bytes); "
               f"torch.add of the same planes {tb[name, 'add']:.4f} ms")
+    # the last pass's launch B on the 2x stack: float32 out and then the pack
+    # of Y (the batched step's route before the packed store) against the
+    # packed store, which leaves the guard rows out; equal byte for byte
+    zone2 = dict(frame_h=out_h, frame_pad=2 * lr_pad)
+
+    def float_then_pack(dtype):
+        # the frames' view packed, as the step packed it (no copy first)
+        plane = fk.pass_epilogue(stack, raw_stack, blending=2, **ekw, **zone2)
+        frames = plane.reshape(N_FRAMES, -1, out_w)[:, 2 * lr_pad: 2 * lr_pad + out_h]
+        return up.pack_planes(frames, dtype).reshape(-1, out_w)
+
+    def packed(dtype):
+        return fk.pass_epilogue(stack, raw_stack, blending=2, **ekw, **zone2, out_dtype=dtype)
+
+    for dtype in (torch.uint8, torch.uint16):
+        errsb.append(hold("10 launch B packed", f"{dtype} frames of the {tuple(stack.shape)} "
+                          "stack vs float32 out and pack_planes", packed(dtype),
+                          float_then_pack(dtype)))
+        ms_pack = cuda_ms(functools.partial(float_then_pack, dtype), 20, 3)
+        ms_packed = cuda_ms(functools.partial(packed, dtype), 20, 3)
+        out_bytes = N_FRAMES * out_h * out_w * dtype.itemsize
+        bnd = bound(nbytes(stack, raw_stack), out_bytes, 0, "float32")["bound_ms"]
+        print(f"phase 10 times on {card}, launch B packed {dtype}, the {tuple(stack.shape)} "
+              f"stack: float32 out then pack_planes {ms_pack:.4f} ms, packed store "
+              f"{ms_packed:.4f} ms, bound {bnd:.4f} ms (bytes: "
+              f"{(nbytes(stack, raw_stack) + out_bytes) / stack.numel():.3f} a stack pixel)")
     a1 = bound(nbytes(cheap), cheap.numel(), cheap.numel() * HASH_OPS, "float32")
     print(f"phase 10 launch A1's bound on the plane: {a1['bound_ms']:.4f} ms ({a1['bound_by']}: "
           f"{HASH_OPS} float operations a pixel, the plane in and a byte a pixel out)")
@@ -2953,13 +2983,14 @@ def main() -> int:
     engine = RaisrEngine(cfg, model, device=dev)
     torch.cuda.synchronize()
     zero(fk.LAUNCHES)
-    fk.EPILOGUE_LAUNCHES = 0
+    fk.EPILOGUE_LAUNCHES = fk.PACKED_EPILOGUE_LAUNCHES = 0
     glue_zero()
     with counting_calls(CHAIN) as chain_calls:
         oy, ou, ov = engine.process_batch_device(y, u, v)
         torch.cuda.synchronize()
     launches = fk.LAUNCHES[("float32", 4)]
     b_launches = fk.EPILOGUE_LAUNCHES
+    packed_launches = fk.PACKED_EPILOGUE_LAUNCHES
     glue = dict(up.UPSCALE_LAUNCHES)
     glue_read("2")
     print(f"phase 2 glue launches {glue}; calls of the PyTorch chain it replaces {chain_calls}")
@@ -2975,8 +3006,9 @@ def main() -> int:
     )
     print(f"phase 2 main path: Y {tuple(oy.shape)} U/V {tuple(ou.shape)} "
           f"{oy.dtype} on {oy.device}, kernel passes launched {launches}, launch B "
-          f"{b_launches}")
-    if not ok_shapes or launches != PASSES or b_launches != PASSES:
+          f"{b_launches} ({packed_launches} writing the packed Y frames)")
+    if (not ok_shapes or launches != PASSES or b_launches != PASSES
+            or packed_launches != 1):
         raise SystemExit("phase 2 failed: shapes, dtype, device or launch count")
     if not torch.equal(oy, stack_y.to(torch.uint8)):
         raise SystemExit("phase 2 failed: Y differs from phase 1's stacked launches")

@@ -63,9 +63,11 @@
 //     filter output (dot_rows of raisr_common.cuh), four pixels a thread,
 //     each warp's lanes ordered by bucket. Bucket is uint8_t for A1's plane
 //     and int for a caller's (apply_filters), which is range checked.
-//   B (epilogue_kernel<kCobc, kVec>): reject, zones, census blend and
+//   B (epilogue_kernel<kCobc, kVec, Out>): reject, zones, census blend and
 //     rounding. Each pixel's HR value is formed once, on the way in; see the
-//     note above the kernel.
+//     note above the kernel. Out is float (the pass's float32 plane) or,
+//     for the last pass of a batched step, uint8_t / uint16_t: the output
+//     frames packed, guard rows left out.
 //
 // What bounds launch A on an H100, and what the design does about it. It
 // moves few bytes (the plane in twice, a byte of bucket out and back, the
@@ -74,8 +76,9 @@
 // memory (one 128-byte wavefront per SM per clock); A1 on the issue of its
 // instructions and the latency of the hash's IEEE divisions and square
 // roots. Launch B moves 12 bytes a pixel (cheap and raw in, the pass out:
-// ~100 MB a 4K plane, ~30 us) and is bound by them once its census reads
-// come from registers:
+// ~100 MB a 4K plane, ~30 us; packed, 9 at 8 bits and 10 at 16, and no
+// guard rows out) and is bound by them once its census reads come from
+// registers:
 //   - The filter row. A pixel reads 121 taps: 31 16-byte loads at float32,
 //     16 at 16 bits. Gathered from global memory, the 32 lanes of a warp read
 //     up to 32 different rows, so each warp-wide load splits into up to 32
@@ -803,8 +806,17 @@ gather_resident_kernel(const float* __restrict__ cheap,
 // (nine range and zone tests, ten run-time modulos and eighteen scalar loads
 // a pixel) is bound by the issue of its instructions, at 3.5x its bytes. So:
 //   - a thread owns 4 pixels of a row, one 16-byte load of cheap and of raw
-//     and one 16-byte store; where the row pitch or a pointer is not a
-//     multiple of 16 bytes (kVec false) the same code moves them one by one;
+//     and one store; where the row pitch or a pointer is not a multiple of
+//     the access (kVec false) the same code moves them one by one;
+//   - the store is the only thing Out changes. float writes the whole plane
+//     (16 bytes a thread), which the next pass reads with its guard rows.
+//     uint8_t and uint16_t write the output frames packed, as pack_planes
+//     packs them, 4 or 8 bytes a thread (a warp 128 or 256 contiguous
+//     bytes): 9 bytes a pixel at 8 bits, 10 at 16, against 12. Rows that
+//     frame_row maps into the guard band are not written, and frame k's rows
+//     land at output rows k * frame_h ..: the stack's [N, frame_h, w]
+//     frames (a whole stack, row0 0), which PyTorch no longer reads back
+//     as float32 to pack;
 //   - a warp (128 columns) walks down kEpiRows rows with the cheap and hr
 //     values of three rows in registers, so every census read is a register
 //     read; the columns beside a thread's four come from the neighbour lanes
@@ -910,10 +922,11 @@ __device__ __forceinline__ void load_row(const float* __restrict__ cheap,
 // registers a thread): more rows in flight hide the loads' latency, which
 // is what a kernel this close to its bytes waits on. The one-by-one form
 // needs more registers for its addresses and gets three blocks' worth.
-template <bool kCobc, bool kVec>
+template <bool kCobc, bool kVec, typename Out>
 __global__ void __launch_bounds__(32 * kEpiWarps, kVec ? 4 : 3)
 epilogue_kernel(const float* __restrict__ cheap, const float* __restrict__ raw,
-                float* __restrict__ out, int h, int w, EpilogueParams p) {
+                Out* __restrict__ out, int h, int w, EpilogueParams p) {
+  constexpr bool kPacked = !std::is_same<Out, float>::value;
   const int lane = threadIdx.x % 32;
   const int c0 = (blockIdx.x * 32 + lane) * kEpiVec;
   const int r0 = (blockIdx.y * kEpiWarps + threadIdx.x / 32) * kEpiRows;
@@ -931,6 +944,13 @@ epilogue_kernel(const float* __restrict__ cheap, const float* __restrict__ raw,
 
   const int period = p.frame_h + 2 * p.frame_pad;
   int fr = frame_row(r0 - 1 + p.row0, p);  // of the row coming in
+  // packed (row0 0): the frame row of the row written next, and the output
+  // row of its frame's row 0 (negative above frame 0)
+  [[maybe_unused]] int wfr = 0, wbase = 0;
+  if constexpr (kPacked) {
+    wfr = frame_row(r0, p);
+    if (p.frame_h > 0) wbase = (r0 - p.frame_pad - wfr) / period * p.frame_h;
+  }
   float L[3][kEpiWin], H[3][kEpiWin];
   bool rzone[3];
 #pragma unroll
@@ -978,14 +998,16 @@ epilogue_kernel(const float* __restrict__ cheap, const float* __restrict__ raw,
       const bool zone = rzone[(i - 1) % 3] && ((zone_cols >> j) & 1u);
       o[k] = zone ? fminf(fmaxf(floorf(val + 0.5f), p.min_val), p.max_val) : lc;
     }
-    float* dst = out + static_cast<size_t>(r) * w + c0;
-    if (kVec) {
-      if (c0 < w) *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kEpiVec; ++k) {
-        if (c0 + k < w) dst[k] = o[k];
+    if constexpr (kPacked) {
+      if (p.frame_h <= 0 || wfr < p.frame_h) {
+        store4(out + static_cast<size_t>(wbase + wfr) * w, c0, w, kVec, o);
       }
+      if (++wfr == period && p.frame_h > 0) {
+        wfr = 0;
+        wbase += p.frame_h;
+      }
+    } else {
+      store4(out + static_cast<size_t>(r) * w, c0, w, kVec, o);
     }
   }
 }
@@ -1113,6 +1135,24 @@ GatherLaunch<uint8_t> tier_gather(int tier, bool four) {
   }
 }
 
+// Launch B over one output form: the 4-pixel accesses where every row of
+// every plane starts on one (16 bytes in; 4 * sizeof(Out) out).
+template <typename Out>
+cudaError_t launch_epilogue(const float* cheap, const float* raw, Out* out, int h, int w,
+                            int blending, const EpilogueParams& p, cudaStream_t st) {
+  const dim3 grid((w + kEpiCols - 1) / kEpiCols,
+                  (h + kEpiWarps * kEpiRows - 1) / (kEpiWarps * kEpiRows));
+  const uintptr_t in = reinterpret_cast<uintptr_t>(cheap) | reinterpret_cast<uintptr_t>(raw);
+  const bool vec = w % kEpiVec == 0 && in % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % sizeof(Quad<Out>) == 0;
+  auto kernel = blending == 2 ? (vec ? &epilogue_kernel<true, true, Out>
+                                     : &epilogue_kernel<true, false, Out>)
+                              : (vec ? &epilogue_kernel<false, true, Out>
+                                     : &epilogue_kernel<false, false, Out>);
+  kernel<<<grid, 32 * kEpiWarps, 0, st>>>(cheap, raw, out, h, w, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch A1 alone: every pixel's bucket of the [h, w] float32 plane `cheap`
@@ -1191,30 +1231,36 @@ extern "C" int raisr_gather_buckets(const float* cheap, const uint8_t* buckets,
       qangle, qstrength, qcoherence, device, static_cast<cudaStream_t>(stream)));
 }
 
-// Launch B: out = the pass epilogue of (cheap, raw), all [h, w] float32;
-// blending 1 = Randomness, 2 = CountOfBitsChanged. Returns a cudaError_t
-// value (0 on success).
+// Launch B: out = the pass epilogue of (cheap, raw), both [h, w] float32;
+// blending 1 = Randomness, 2 = CountOfBitsChanged. out_form 0 writes out as
+// the [h, w] float32 plane; 1 (uint8) and 2 (uint16) write the output
+// frames packed, the guard rows of a frame stack left out: [h / (frame_h +
+// 2 * frame_pad) * frame_h, w], or [h, w] with frame_h 0; they take a whole
+// stack and row0 0. Returns a cudaError_t value (0 on success).
 extern "C" int raisr_full_epilogue(
-    const float* cheap, const float* raw, float* out, int h, int w,
+    const float* cheap, const float* raw, void* out, int h, int w,
     float min_val, float max_val, int blending, int col_end, int frame_h,
-    int frame_pad, int row0, int eff_h, int device, void* stream) {
-  if (h <= 0 || w <= 0 || (blending != 1 && blending != 2)) {
+    int frame_pad, int row0, int eff_h, int out_form, int device, void* stream) {
+  const int period = frame_h + 2 * frame_pad;
+  if (h <= 0 || w <= 0 || (blending != 1 && blending != 2) || out_form < 0 || out_form > 2 ||
+      (out_form != 0 && (row0 != 0 || (frame_h > 0 && h % period != 0)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const EpilogueParams p{min_val, max_val, col_end, frame_h, frame_pad, row0, eff_h};
-  const dim3 grid((w + kEpiCols - 1) / kEpiCols,
-                  (h + kEpiWarps * kEpiRows - 1) / (kEpiWarps * kEpiRows));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 16-byte accesses need every row of every plane to start on 16 bytes
-  const bool vec = w % kEpiVec == 0 &&
-                   (reinterpret_cast<uintptr_t>(cheap) | reinterpret_cast<uintptr_t>(raw) |
-                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  auto kernel = blending == 2 ? (vec ? &epilogue_kernel<true, true> : &epilogue_kernel<true, false>)
-                              : (vec ? &epilogue_kernel<false, true> : &epilogue_kernel<false, false>);
-  kernel<<<grid, 32 * kEpiWarps, 0, st>>>(cheap, raw, out, h, w, p);
-  return static_cast<int>(cudaGetLastError());
+  switch (out_form) {
+    case 1:
+      return static_cast<int>(
+          launch_epilogue(cheap, raw, static_cast<uint8_t*>(out), h, w, blending, p, st));
+    case 2:
+      return static_cast<int>(
+          launch_epilogue(cheap, raw, static_cast<uint16_t*>(out), h, w, blending, p, st));
+    default:
+      return static_cast<int>(
+          launch_epilogue(cheap, raw, static_cast<float*>(out), h, w, blending, p, st));
+  }
 }
 
 // The filter apply to given buckets: launch A2 over the caller's int32

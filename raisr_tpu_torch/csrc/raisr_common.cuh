@@ -1,6 +1,7 @@
 // Shared pieces of the raisr_tpu_torch CUDA kernels (full_kernel.cu,
-// probe_s16.cu): constants, the per-pixel dot of a filter row with its
-// patch, and DeviceGuard.
+// probe_s16.cu, upscale.cu): constants, the per-pixel dot of a filter row
+// with its patch, the store of four output values as float32 or packed
+// integers (store4), and DeviceGuard.
 //
 // dot_rows is the one place where a pixel's 121-tap filter row meets its
 // 11x11 patch. Every filter dot of the port runs through it, from a bank
@@ -111,6 +112,42 @@ __device__ __forceinline__ void dot_rows(float (&out)[P], Group group, Patch pat
       out[p] = __int2float_rn(acc[p]);
     } else {
       out[p] = acc[p];
+    }
+  }
+}
+
+// An integer-valued float32 output value as Out: itself, or packed as
+// ops/cuda/upscale.py pack_planes packs it (through int32, wrapping to
+// Out's width; exact for a value in [0, 2^bits - 1]).
+template <typename Out>
+__device__ __forceinline__ Out narrow(float v) {
+  if constexpr (std::is_same<Out, float>::value) {
+    return v;
+  } else {
+    return static_cast<Out>(static_cast<int>(v));
+  }
+}
+
+template <typename Out>
+struct alignas(4 * sizeof(Out)) Quad {
+  Out v[4];
+};
+
+// Four output values at columns c .. c + 3 of one row: one store (16 bytes
+// of float32, 8 of uint16, 4 of uint8) where the row pitch keeps the quad
+// aligned, else one by one up to out_w.
+template <typename Out>
+__device__ __forceinline__ void store4(Out* __restrict__ row, int c, int out_w, bool vec,
+                                       const float (&v)[4]) {
+  if (vec && c + 3 < out_w) {
+    Quad<Out> q;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q.v[k] = narrow<Out>(v[k]);
+    *reinterpret_cast<Quad<Out>*>(row + c) = q;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (c + k < out_w) row[c + k] = narrow<Out>(v[k]);
     }
   }
 }

@@ -107,39 +107,6 @@ __device__ __forceinline__ float widen(T v) {
   return static_cast<float>(v);
 }
 
-template <typename Out>
-__device__ __forceinline__ Out narrow(float v) {
-  if constexpr (std::is_same<Out, float>::value) {
-    return v;
-  } else {
-    // an integer-valued float in [0, 2^bits - 1]: exact
-    return static_cast<Out>(static_cast<unsigned int>(v));
-  }
-}
-
-template <typename Out>
-struct alignas(4 * sizeof(Out)) Quad {
-  Out v[4];
-};
-
-// Four output values at columns c .. c + 3 of one row: one store where the
-// row pitch keeps the quad aligned, else one by one up to out_w.
-template <typename Out>
-__device__ __forceinline__ void store4(Out* __restrict__ row, int c, int out_w, bool vec,
-                                       const float (&v)[4]) {
-  if (vec && c + 3 < out_w) {
-    Quad<Out> q;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) q.v[k] = narrow<Out>(v[k]);
-    *reinterpret_cast<Quad<Out>*>(row + c) = q;
-  } else {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (c + k < out_w) row[c + k] = narrow<Out>(v[k]);
-    }
-  }
-}
-
 __device__ __forceinline__ float round_clamp(float v, float maxv) {
   return fminf(fmaxf(floorf(__fadd_rn(v, 0.5f)), 0.0f), maxv);
 }

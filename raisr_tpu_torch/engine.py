@@ -252,13 +252,17 @@ class RaisrEngine:
                            else None for p in (y, u, v))
         return Frame(y=y, u=u, v=v)
 
-    def process_batch_y(self, batch_y: torch.Tensor) -> torch.Tensor:
-        """Batched luma processing ([N, H, W] in, [N, oH, oW] float32 out).
+    def process_batch_y(self, batch_y: torch.Tensor,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Batched luma processing ([N, H, W] in, [N, oH, oW] `out_dtype`
+        out: float32, or uint8 / uint16 packed as pack_planes packs).
 
         On the fused backend the batch rides ONE kernel launch per pass as a
         guard-banded vertical stack with per-frame zone masks; the output is
         exactly N x upscale_y. The frames are integer values, packed (uint8,
-        uint16) or float32; row stripes take float32.
+        uint16) or float32; row stripes take float32. Packed frames come
+        from the last pass itself on the stack (process_plane_y_batch), from
+        pack_planes on a mesh.
 
         With a shard spec (engine shard= / CLI --shard) the batch is spread
         over the mesh: frames over the data axis (each device runs the
@@ -267,32 +271,38 @@ class RaisrEngine:
         on the engine's device."""
         n, h, w = batch_y.shape
         out_h, out_w = self.cfg.output_size(h, w)
-        if self._mesh is not None:
-            d = self._shard["data"]
-            if n % d:
-                raise RaisrError(
-                    f"batch size {n} must be divisible by "
-                    f"the data shard count {d}."
-                )
-            if self._shard["rows"] > 1:
-                self._check_rows_shardable(h, out_h)
-                return process_batch_2d(
-                    batch_y, self._banks, self._statics, self.cfg.passes,
-                    self.cfg.two_pass_mode, out_h, out_w, self._mesh, "data", "rows",
-                )
-            return process_batch_dp(
+        if self._mesh is None:
+            return process_plane_y_batch(
+                batch_y,
+                self._filters,
+                self._statics,
+                self.cfg.passes,
+                self.cfg.two_pass_mode,
+                out_h,
+                out_w,
+                out_dtype,
+            )
+        d = self._shard["data"]
+        if n % d:
+            raise RaisrError(
+                f"batch size {n} must be divisible by "
+                f"the data shard count {d}."
+            )
+        if self._shard["rows"] > 1:
+            self._check_rows_shardable(h, out_h)
+            y = process_batch_2d(
+                batch_y, self._banks, self._statics, self.cfg.passes,
+                self.cfg.two_pass_mode, out_h, out_w, self._mesh, "data", "rows",
+            )
+        else:
+            y = process_batch_dp(
                 batch_y, self._banks, self._statics, self.cfg.passes,
                 self.cfg.two_pass_mode, out_h, out_w, self._mesh, "data",
             )
-        return process_plane_y_batch(
-            batch_y,
-            self._filters,
-            self._statics,
-            self.cfg.passes,
-            self.cfg.two_pass_mode,
-            out_h,
-            out_w,
-        )
+        if out_dtype == torch.float32:
+            return y
+        with span("raisr.pack"):
+            return pack_planes(y, out_dtype)
 
     def process_batch_uv(self, batch_uv: torch.Tensor,
                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -321,13 +331,14 @@ class RaisrEngine:
         The packed frames go to process_batch_y as they are (row stripes
         take them unpacked to float32): on the stacked route one glue launch
         (ops/cuda/upscale.py) unpacks, guard-bands and upscales them into
-        pass 1's input, and U and V take one launch each, packed in and
-        packed out, so a 2x step's glue is three launches and the final
-        pack of Y.
+        pass 1's input, the last pass's launch B writes the packed Y frames
+        (no pack of Y runs), and U and V take one launch each, packed in and
+        packed out, so a 2x step's glue is three launches. A mesh and the
+        per-frame loop pack Y with pack_planes.
 
         Under a torch.profiler the step is the span `raisr.step`, holding
-        `raisr.glue` and `raisr.pass` (ops/pipeline.py), then `raisr.chroma`
-        (U and V) and `raisr.pack` (the pack of Y).
+        `raisr.glue` and `raisr.pass` (ops/pipeline.py), `raisr.pack` where
+        Y is packed with pack_planes, and `raisr.chroma` (U and V).
 
         Y is [N, H, W]; U/V are optional [N, Hc, Wc] chroma batches."""
         with span("raisr.step"):
@@ -338,10 +349,8 @@ class RaisrEngine:
                     )
             dtype = self._out_dtype
             y = batch_y if self._shard["rows"] == 1 else unpack_planes(batch_y)
-            y = self.process_batch_y(y)
+            out_y = self.process_batch_y(y, dtype)
             with span("raisr.chroma"):
                 out_u = self.process_batch_uv(batch_u, dtype) if batch_u is not None else None
                 out_v = self.process_batch_uv(batch_v, dtype) if batch_v is not None else None
-            with span("raisr.pack"):
-                out_y = pack_planes(y, dtype)
         return out_y, out_u, out_v

@@ -119,7 +119,7 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [vp, vp, i, i, vp, f, vp, i, vp, i, i, i, i, f, i, vp]
     fn.restype = i
     fn = lib.raisr_full_epilogue
-    fn.argtypes = [vp, vp, vp, i, i, f, f, i, i, i, i, i, i, i, vp]
+    fn.argtypes = [vp, vp, vp, i, i, f, f, i, i, i, i, i, i, i, i, vp]
     fn.restype = i
     fn = lib.raisr_filter_apply
     fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]

@@ -29,7 +29,8 @@ the kernel or raise. `LAUNCHES[(tier, phases)]` counts the passes that went
 through the kernel, one per pass whatever its CUDA launches: float32 and
 bfloat16 (p_split included) with 4 or 1 phases, pcenter and int8 with 4
 only, as on the TPU. `EPILOGUE_LAUNCHES` counts launch B, inside a pass or
-alone.
+alone; `PACKED_EPILOGUE_LAUNCHES` those of them that wrote packed frames
+(`out_dtype` uint8 or uint16: the last pass of a batched step).
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from raisr_tpu_torch.ops.cuda.filter_kernel import (
     apply_filters_reference,
     hash_buckets_reference,
 )
+from raisr_tpu_torch.ops.cuda.upscale import pack_planes
 from raisr_tpu_torch.ops.epilogue import _finish_pass, processed_col_end, zone_height
 
 # passes through the kernel, by (tier, phases): every form the kernel has
@@ -60,6 +62,9 @@ LAUNCHES = {
 TIER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "pcenter": torch.bfloat16, "int8": torch.int16}
 EPILOGUE_LAUNCHES = 0  # launch B (epilogue_kernel), in a pass or through pass_epilogue
+PACKED_EPILOGUE_LAUNCHES = 0  # of them, those that wrote packed frames
+# launch B's output forms (the C entry's out_form)
+_OUT_FORM = {torch.float32: 0, torch.uint8: 1, torch.uint16: 2}
 
 # the int8 tier's grid: raisr_tpu's balanced hi/lo int8 pairs span
 # [-32896, 32639] (full_kernel.py:76, :779)
@@ -227,19 +232,23 @@ def pass_epilogue(
     frame_pad: int = 0,
     row0: int = 0,
     zone_h: int = 0,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The pass epilogue alone (launch B): exclusive range reject,
     processed-zone mask, census blend (1 Randomness, 2 CountOfBitsChanged),
     floor(+0.5), clamp and the blend zone, with the zones of a frame stack
     (frame_h/frame_pad) or a row stripe (row0/zone_h). The CUDA kernel for
     CUDA tensors, ops/epilogue.py `_finish_pass`, its plain version, for CPU
-    tensors; the two agree bit for bit."""
+    tensors; the two agree bit for bit. `out_dtype` uint8 or uint16 returns
+    the output frames packed (`packed_frames`)."""
+    _check_out(out_dtype, cheap.shape[0], frame_h, frame_pad, row0, zone_h)
     loop_margin = patch_size // 2 + 1
     col_end = processed_col_end(cheap.shape[-1], loop_margin, exact_edges)
     if cheap.device.type == "cpu":
-        return _finish_pass(cheap, raw, min_val=min_val, max_val=max_val, blending=blending,
-                            loop_margin=loop_margin, col_end=col_end, frame_h=frame_h,
-                            frame_pad=frame_pad, row0=row0, zone_h=zone_h)
+        out = _finish_pass(cheap, raw, min_val=min_val, max_val=max_val, blending=blending,
+                           loop_margin=loop_margin, col_end=col_end, frame_h=frame_h,
+                           frame_pad=frame_pad, row0=row0, zone_h=zone_h)
+        return packed_frames(out, out_dtype, frame_h, frame_pad)
     if cheap.device.type != "cuda":
         raise ValueError(f"pass_epilogue runs on cpu or cuda, not {cheap.device}")
     _check_plane(cheap)
@@ -254,27 +263,64 @@ def pass_epilogue(
     if blending not in (1, 2):
         raise ValueError(f"blending must be 1 or 2, got {blending}")
     return _launch_epilogue(cheap, raw, float(min_val), float(max_val), int(blending), col_end,
-                            frame_h, frame_pad, row0, zone_h)
+                            frame_h, frame_pad, row0, zone_h, out_dtype)
+
+
+def _check_out(out_dtype: torch.dtype, h: int, frame_h: int, frame_pad: int, row0: int,
+               zone_h: int) -> None:
+    """Holds launch B's output form to what it can write, on every device:
+    float32, or packed uint8 / uint16 frames of a whole plane or a whole
+    frame stack (row0 0, zone_h 0, h a multiple of the stack's period)."""
+    if out_dtype not in _OUT_FORM:
+        raise ValueError(f"out_dtype must be float32, uint8 or uint16, got {out_dtype}")
+    if out_dtype == torch.float32:
+        return
+    if row0 or zone_h:
+        raise ValueError(f"packed frames come from a whole plane or stack, not a row stripe "
+                         f"(row0 {row0}, zone_h {zone_h})")
+    if frame_h > 0 and h % (frame_h + 2 * frame_pad):
+        raise ValueError(f"packed frames come from a whole stack: {h} rows are not whole "
+                         f"periods of {frame_h} + 2 * {frame_pad}")
+
+
+def packed_frames(plane: torch.Tensor, out_dtype: torch.dtype, frame_h: int = 0,
+                  frame_pad: int = 0) -> torch.Tensor:
+    """Plain version of launch B's packed store, on any device: a pass's
+    float32 output plane with a frame stack's guard rows left out (frame k
+    at rows k * frame_h ..), packed as pack_planes packs. float32 returns
+    the plane as it is, guard rows and all."""
+    if out_dtype == torch.float32:
+        return plane
+    if frame_h > 0:
+        w = plane.shape[1]
+        period = frame_h + 2 * frame_pad
+        plane = plane.reshape(-1, period, w)[:, frame_pad: frame_pad + frame_h].reshape(-1, w)
+    return pack_planes(plane, out_dtype)
 
 
 def _launch_epilogue(cheap, raw, min_val: float, max_val: float, blending: int, col_end: int,
-                     frame_h: int, frame_pad: int, row0: int, zone_h: int) -> torch.Tensor:
-    """Launch B on the current stream, over arguments the caller checked;
-    raises if the launch fails."""
+                     frame_h: int, frame_pad: int, row0: int, zone_h: int,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch B on the current stream, over arguments the caller checked
+    (`_check_out` among them); raises if the launch fails."""
     from raisr_tpu_torch.ops.cuda._build import load_library
 
     h, w = cheap.shape
-    out = torch.empty_like(cheap)
+    packed = out_dtype != torch.float32
+    rows = h // (frame_h + 2 * frame_pad) * frame_h if packed and frame_h > 0 else h
+    out = torch.empty((rows, w), dtype=out_dtype, device=cheap.device)
     dev, stream = _device_and_stream(cheap)
     err = load_library().raisr_full_epilogue(
         cheap.data_ptr(), raw.data_ptr(), out.data_ptr(), h, w,
         min_val, max_val, blending, col_end,
-        frame_h, frame_pad, row0, zone_height(h, frame_h, zone_h), dev, stream,
+        frame_h, frame_pad, row0, zone_height(h, frame_h, zone_h), _OUT_FORM[out_dtype], dev,
+        stream,
     )
     if err:
         raise RuntimeError(f"raisr_full_epilogue launch failed: cudaError {err}")
-    global EPILOGUE_LAUNCHES
+    global EPILOGUE_LAUNCHES, PACKED_EPILOGUE_LAUNCHES
     EPILOGUE_LAUNCHES += 1
+    PACKED_EPILOGUE_LAUNCHES += int(packed)
     return out
 
 
@@ -367,24 +413,29 @@ class FusedPass:
         frame_pad: int = 0,
         row0: int = 0,  # global row of plane row 0 (row stripes)
         zone_h: int = 0,  # >0: global frame height for zone tests (stripes)
+        out_dtype: torch.dtype = torch.float32,  # uint8 / uint16: the frames packed
     ) -> torch.Tensor:
         """The pass over one plane: launch A then launch B on the current
         stream, counted in LAUNCHES[(tier, pixel_types)], or the plain
-        version on the CPU."""
+        version on the CPU. float32 returns the [H, W] plane; uint8 or
+        uint16 the output frames packed, a stack's guard rows left out
+        (`packed_frames`): the last pass of a batched step."""
         if cheap.device != self.device:
             raise ValueError(f"the fused pass runs on cpu or cuda, on its bank's device "
                              f"{self.device}; got a plane on {cheap.device}")
+        _check_out(out_dtype, cheap.shape[0], frame_h, frame_pad, row0, zone_h)
         if self._hash is None:
-            return raisr_pass_full_reference(cheap, self.filters, frame_h=frame_h,
-                                             frame_pad=frame_pad, row0=row0, zone_h=zone_h,
-                                             **self._plain)
+            out = raisr_pass_full_reference(cheap, self.filters, frame_h=frame_h,
+                                            frame_pad=frame_pad, row0=row0, zone_h=zone_h,
+                                            **self._plain)
+            return packed_frames(out, out_dtype, frame_h, frame_pad)
         _check_plane(cheap)
         raw = torch.empty_like(cheap)
         _launch_hash_filter(cheap, self.filters, raw, self.pixel_types, self._hash, self.tier,
                             self.pbias, self.inv_scale)
         col_end = processed_col_end(cheap.shape[1], self._loop_margin, self._exact_edges)
         out = _launch_epilogue(cheap, raw, *self._epilogue, col_end, frame_h, frame_pad, row0,
-                               zone_h)
+                               zone_h, out_dtype)
         LAUNCHES[self.tier, self.pixel_types] += 1
         return out
 

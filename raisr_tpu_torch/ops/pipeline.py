@@ -31,7 +31,7 @@ from raisr_tpu_torch.model.gaussian import (
 )
 from raisr_tpu_torch.model.loader import RaisrModel
 from raisr_tpu_torch.ops import hashing
-from raisr_tpu_torch.ops.cuda.full_kernel import FusedPass
+from raisr_tpu_torch.ops.cuda.full_kernel import FusedPass, packed_frames
 from raisr_tpu_torch.ops.cuda.upscale import (
     cheap_upscale_planes,
     cheap_upscale_stack,
@@ -98,11 +98,15 @@ def raisr_pass(
     frame_pad: int = 0,
     row0: int = 0,
     zone_h: int = 0,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """One RAISR pass over an integer-valued float32 plane. Returns the
-    integer-valued output plane (float32). The fused backend's `bank` is the
-    pass pass_banks prepared; the taps and conv passes take their bin edges
-    from statics.bank_edges[pass_idx] (raisr_tpu also passes them as arrays).
+    integer-valued output plane (float32), or with `out_dtype` uint8 or
+    uint16 the output frames packed, a stack's guard rows left out (the
+    fused pass's launch B writes them so; `packed_frames` on the taps and
+    conv passes). The fused backend's `bank` is the pass pass_banks
+    prepared; the taps and conv passes take their bin edges from
+    statics.bank_edges[pass_idx] (raisr_tpu also passes them as arrays).
 
     frame_h > 0: the plane is a vertical stack of frame_h-row frames
     separated by 2*frame_pad guard rows; zone masks are applied per frame
@@ -123,7 +127,8 @@ def raisr_pass(
 
     with span("raisr.pass"):
         if s.backend == "pallas":
-            return bank(cheap, frame_h=frame_h, frame_pad=frame_pad, row0=row0, zone_h=zone_h)
+            return bank(cheap, frame_h=frame_h, frame_pad=frame_pad, row0=row0, zone_h=zone_h,
+                        out_dtype=out_dtype)
         if s.backend not in ("taps", "conv"):
             raise RaisrError(f"backend {s.backend!r} is not a backend of raisr_tpu_torch.")
 
@@ -151,13 +156,14 @@ def raisr_pass(
             )
             raw = apply_filters_taps(cheap, buckets * s.pixel_types + ptype, bank.filters,
                                      s.patch_size)
-        return _finish_pass(
+        out = _finish_pass(
             cheap, raw,
             min_val=s.min_val, max_val=s.max_val, blending=int(s.blending),
             loop_margin=s.loop_margin,
             col_end=processed_col_end(w, s.loop_margin, s.exact_edges),
             frame_h=frame_h, frame_pad=frame_pad, row0=row0, zone_h=zone_h,
         )
+        return packed_frames(out, out_dtype, frame_h, frame_pad)
 
 
 def _fused_tier(cfg: RaisrConfig, single_phase: bool) -> str:
@@ -292,6 +298,7 @@ def process_plane_y_batch(
     two_pass_mode: int,
     out_h: int,
     out_w: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Batched luma pipeline: N frames ride ONE kernel launch per pass as a
     guard-banded vertical stack.
@@ -309,7 +316,12 @@ def process_plane_y_batch(
     `batch_lr` holds integer values as uint8, uint16 or float32. On the
     stack, one cheap_upscale_stack (one glue launch on a CUDA device) builds
     pass 1's input from the frames, and in mode 2 one more upscales pass 1's
-    stack."""
+    stack.
+
+    The result is [N, out_h, out_w] `out_dtype`: float32, or uint8 / uint16
+    packed as pack_planes packs. On the stack the last pass writes the
+    packed frames itself (the fused pass's launch B on a CUDA device, with
+    no guard rows); the loop packs its float32 frames with pack_planes."""
     n, h, w = batch_lr.shape
     s = statics
     # LR guard: 6 rows covers the resize support; when pass 1 runs at LR
@@ -324,12 +336,16 @@ def process_plane_y_batch(
     )
     if not stackable:
         batch_lr = unpack_planes(batch_lr)
-        return torch.stack([
+        frames = torch.stack([
             process_plane_y(
                 y, bank_filters, statics, passes, two_pass_mode, out_h, out_w
             )
             for y in batch_lr
         ])
+        if out_dtype == torch.float32:
+            return frames
+        with span("raisr.pack"):
+            return pack_planes(frames, out_dtype)
 
     x = batch_lr
     cur_fh, cur_pad = h, lr_pad
@@ -356,7 +372,10 @@ def process_plane_y_batch(
             pass_idx,
             frame_h=cur_fh,
             frame_pad=cur_pad,
+            out_dtype=out_dtype if pass_idx == passes - 1 else torch.float32,
         )
+    if out_dtype != torch.float32:
+        return x.reshape(n, cur_fh, out_w)
     x = x.reshape(n, cur_fh + 2 * cur_pad, out_w)
     return x[:, cur_pad: cur_pad + cur_fh, :]
 

@@ -22,7 +22,11 @@ the copy that last used it has finished on the device, so a slot can be
 neither refilled under a copy in flight nor overwritten while a caller still
 holds its frames; in the steady state `depth + 1` sets of blocks circulate.
 Only pinned memory makes a copy asynchronous; from or to pageable memory
-`non_blocking` blocks the host.
+`non_blocking` blocks the host. The staging copy is the host's largest cost
+a group (~2.2 ms for four 1080p frames on one thread of an H100's host,
+PERF.md), so the frames of a group are shared out over up to
+`STAGE_THREADS` threads, the caller's among them (numpy copies with the GIL
+released); the pool lives as long as one `process` call.
 
 The copies in run on one side stream and the copies out on another, so group
 k+1's frames arrive and group k-1's leave while group k's kernels run on the
@@ -46,6 +50,7 @@ into row stripes). Staging, copies and events stay on the engine's device.
 from __future__ import annotations
 
 import collections
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterable, Iterator, Optional
 
@@ -55,6 +60,10 @@ import torch
 from raisr_tpu_torch.engine import RaisrEngine, Frame
 from raisr_tpu_torch.ops.cuda.upscale import pack_planes, unpack_planes
 from raisr_tpu_torch.utils.profiler import Tracer
+
+# threads that copy a group's frames into its pinned planes, the caller's
+# among them: one thread's copy alone would bound the stream's rate
+STAGE_THREADS = 4
 
 
 @dataclass
@@ -100,6 +109,7 @@ class StreamProcessor:
         self.depth = max(1, depth)
         self.batch = max(1, batch)
         self.tracer = tracer or Tracer(enabled=False)
+        self._threads = min(self.batch, STAGE_THREADS)
         self._cuda = engine.device.type == "cuda"
         # side streams for the copies in and out (None, as on the CPU: the
         # copies run where the step runs)
@@ -122,20 +132,38 @@ class StreamProcessor:
                           v=vs[i] if vs is not None else None)
                     for i in range(inflight.n_real)]
 
-    def _stage(self, planes: list[np.ndarray]) -> torch.Tensor:
-        """The group's planes as one [N, H, W] tensor on the engine's device.
-        The host tensor is pinned on a CUDA engine; it is filled through its
-        numpy view, so a uint16 plane is only ever copied."""
-        first = np.asarray(planes[0])
-        host = torch.empty((len(planes),) + first.shape, dtype=_torch_dtype(first.dtype),
-                           pin_memory=self._cuda)
-        view = host.numpy()
-        for i, p in enumerate(planes):
-            np.copyto(view[i], p)
+    def _stage(self, group: list[Frame], pool: Optional[ThreadPoolExecutor]) -> tuple:
+        """The group's Y, U and V planes, each one [N, H, W] tensor on the
+        engine's device (U and V None for frames without chroma). The host
+        tensors are pinned on a CUDA engine and filled through their numpy
+        views, so a uint16 plane is only ever copied: this thread fills one
+        share of the frames and each of `pool`'s workers another."""
+        planes = [[f.y for f in group]]
+        if group[0].u is not None:
+            planes += [[f.u for f in group], [f.v for f in group]]
+        hosts = []
+        for p in planes:
+            first = np.asarray(p[0])
+            hosts.append(torch.empty((len(p),) + first.shape, dtype=_torch_dtype(first.dtype),
+                                     pin_memory=self._cuda))
+        views = [h.numpy() for h in hosts]
+        shares = 1 if pool is None else self._threads
+
+        def fill(share: int) -> None:
+            for i in range(share, len(group), shares):
+                for view, p in zip(views, planes):
+                    np.copyto(view[i], p[i])
+
+        others = [pool.submit(fill, k) for k in range(1, shares)]
+        fill(0)
+        for f in others:
+            f.result()
         if self._in is None:
-            return host.to(self.engine.device, non_blocking=True)
-        with torch.cuda.stream(self._in):
-            return host.to(self.engine.device, non_blocking=True)
+            dev = [h.to(self.engine.device, non_blocking=True) for h in hosts]
+        else:
+            with torch.cuda.stream(self._in):
+                dev = [h.to(self.engine.device, non_blocking=True) for h in hosts]
+        return tuple(dev) if len(dev) == 3 else (dev[0], None, None)
 
     def _to_host(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         if t is None or not self._cuda:
@@ -163,18 +191,17 @@ class StreamProcessor:
         return self._dispatch_stack([frame], 1, lambda ys, us, vs: (
             one(eng.upscale_y, ys), one(eng.upscale_uv, us), one(eng.upscale_uv, vs)))
 
-    def _dispatch_stack(self, group: list[Frame], pad_to: int, step=None) -> _InFlight:
+    def _dispatch_stack(self, group: list[Frame], pad_to: int, step=None,
+                        pool: Optional[ThreadPoolExecutor] = None) -> _InFlight:
         """One device-step dispatch over a stack of frames; short tail
         groups are padded by repeating the last frame (one launch shape for
         the whole clip) and sliced when waited on. `step` is the engine's
-        `process_batch_device` unless given. The staging and the copies in
-        are the stage "stage"."""
+        `process_batch_device` unless given; `pool` shares the staging
+        (`_stage`). The staging and the copies in are the stage "stage"."""
         n_real = len(group)
         group = group + [group[-1]] * (pad_to - n_real)
         with self.tracer.stage("stage"):
-            ys = self._stage([f.y for f in group])
-            us = self._stage([f.u for f in group]) if group[0].u is not None else None
-            vs = self._stage([f.v for f in group]) if group[0].v is not None else None
+            ys, us, vs = self._stage(group, pool)
         main = torch.cuda.current_stream(self.engine.device) if self._cuda else None
         if self._in is not None:
             main.wait_stream(self._in)  # the step starts behind its frames
@@ -192,6 +219,9 @@ class StreamProcessor:
         queue: collections.deque[_InFlight] = collections.deque()
         per_frame = self.engine._mesh is not None and self.batch == 1
         group: list[Frame] = []
+        pool = None
+        if self._threads > 1:
+            pool = ThreadPoolExecutor(self._threads - 1, thread_name_prefix="raisr-stage")
         try:
             for frame in frames:
                 if per_frame:
@@ -202,13 +232,13 @@ class StreamProcessor:
                     if len(group) < self.batch:
                         continue
                     with self.tracer.stage("dispatch"):
-                        queue.append(self._dispatch_stack(group, self.batch))
+                        queue.append(self._dispatch_stack(group, self.batch, pool=pool))
                     group = []
                 while len(queue) > self.depth:
                     yield from self._wait(queue.popleft())
             if group:
                 with self.tracer.stage("dispatch"):
-                    queue.append(self._dispatch_stack(group, self.batch))
+                    queue.append(self._dispatch_stack(group, self.batch, pool=pool))
             while queue:
                 yield from self._wait(queue.popleft())
         finally:
@@ -218,3 +248,5 @@ class StreamProcessor:
             for inflight in queue:
                 if inflight.done is not None:
                     inflight.done.synchronize()
+            if pool is not None:
+                pool.shutdown()

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: held against their plain PyTorch
 versions, inside the engine's batched step, and under CUDA-graph capture:
 the fused pass (every tier: float32, bf16 at 8 bits and p_split at 10/16,
-pcenter, int8; 4 and 1 phases), launch B alone (pass_epilogue), the filter
-apply (apply_filters, 4 and 1 phases, banks of 1 to 256 buckets and the
-refusal above shared memory, the largest bank it admits), launch A alone
+pcenter, int8; 4 and 1 phases), launch B alone (pass_epilogue) and its
+packed store (the batched step's last pass), the filter apply
+(apply_filters, 4 and 1 phases, banks of 1 to 256 buckets and the refusal
+above shared memory, the largest bank it admits), launch A alone
 (apply_filters_hash), launch A2 alone over uint8 buckets (gather_buckets:
 planes that stress its lane order, the largest grid, the serving stacks), the
 engine's refusal of a bank over the CUDA pass's limits, the s8 matmul
@@ -763,6 +764,86 @@ def test_epilogue_stacks_stripes_and_alignment(blending, w):
         _hold_epilogue(cheap, raw, blending=blending, row0=row0, zone_h=zone_h, **kw)
     cheap, raw, kw = _epilogue_inputs(70, w, 8, 7 + w, dev, misalign=True)
     _hold_epilogue(cheap, raw, blending=blending, **kw)
+
+
+@pytest.mark.parametrize("bits,dtype", [(8, torch.uint8), (10, torch.uint16),
+                                        (16, torch.uint16)])
+@pytest.mark.parametrize("blending", [1, 2])
+@pytest.mark.parametrize("w", [76, 75])
+@pytest.mark.parametrize("pixel_types", [4, 1])
+def test_packed_epilogue_equals_float_and_pack(pixel_types, w, blending, bits, dtype):
+    """Launch B's packed store, the last pass of a batched step, against its
+    float32 store and pack_planes, bit for bit: uint8 at 8 bits, uint16 at
+    10 and 16; both blendings; 4-pixel and one-by-one accesses (a width
+    that is no multiple of 4); a 4-frame stack with an odd guard band,
+    through the 4-phase (2x) and the single-phase (1.5x) fused pass, whose
+    output holds no guard row; then launch B alone (pass_epilogue)."""
+    dev = require_cuda()
+    frame_h, pad = 41, 7
+    period = frame_h + 2 * pad
+    stack = np.concatenate([np.pad(smooth(frame_h, w, bits=bits, seed=30 + i), ((pad, pad), (0, 0)),
+                                   mode="edge") for i in range(4)])
+    stack = torch.tensor(stack, device=dev)
+    f = torch.tensor(make_filters(np.random.default_rng(4), pixel_types), device=dev)
+    fused = fk.FusedPass(f, pixel_types=pixel_types, **_kw(blending, bits))
+    zone = dict(frame_h=frame_h, frame_pad=pad)
+    before, packed = fk.EPILOGUE_LAUNCHES, fk.PACKED_EPILOGUE_LAUNCHES
+    full = fused(stack, **zone)
+    got = fused(stack, **zone, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert (fk.EPILOGUE_LAUNCHES, fk.PACKED_EPILOGUE_LAUNCHES) == (before + 2, packed + 1)
+    frames = full.reshape(4, period, w)[:, pad: pad + frame_h].reshape(4 * frame_h, w)
+    assert got.dtype == dtype and got.shape == (4 * frame_h, w)
+    assert torch.equal(got, up.pack_planes(frames, dtype)), int((got != up.pack_planes(
+        frames, dtype)).sum())
+    cheap, raw, kw = _epilogue_inputs(4 * period, w, bits, w + bits, dev)
+    alone = fk.pass_epilogue(cheap, raw, blending=blending, **kw, **zone, out_dtype=dtype)
+    plane = fk.pass_epilogue(cheap, raw, blending=blending, **kw, **zone)
+    torch.cuda.synchronize()
+    assert fk.PACKED_EPILOGUE_LAUNCHES == packed + 2
+    want = up.pack_planes(plane.reshape(4, period, w)[:, pad: pad + frame_h].reshape(-1, w),
+                          dtype)
+    assert torch.equal(alone, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ratio,passes,pixel_types", [(2.0, 2, 4), (1.5, 1, 1)])
+def test_device_step_packs_y_in_launch_b(monkeypatch, dtype, ratio, passes, pixel_types):
+    """The batched step on the card: its last pass's launch B writes the
+    packed Y frames, one packed launch a step and no pack_planes (made to
+    raise), equal to the float32 route (process_batch_y, then pack_planes)
+    and to the CPU engine; engine.process counts no packed launch."""
+    from raisr_tpu_torch import engine as eng_mod
+    from raisr_tpu_torch.engine import Frame
+    from raisr_tpu_torch.ops import pipeline
+
+    dev = require_cuda()
+    model = _model(passes=passes, seed=9, pixel_types=pixel_types)
+    y = torch.tensor(smooth_frames(4, 40, 64, seed=12), device=dev)
+    u = torch.tensor(smooth_frames(4, 20, 32, seed=13), device=dev)
+    eng = RaisrEngine(RaisrConfig(ratio=ratio, passes=passes, dtype=dtype), model, device=dev)
+    want = up.pack_planes(eng.process_batch_y(y), torch.uint8)
+
+    def refused(*args, **kw):
+        raise AssertionError("the batched step packed Y with pack_planes")
+
+    monkeypatch.setattr(eng_mod, "pack_planes", refused)
+    monkeypatch.setattr(pipeline, "pack_planes", refused)
+    before = fk.PACKED_EPILOGUE_LAUNCHES
+    oy, ou, ov = eng.process_batch_device(y, u, u)
+    torch.cuda.synchronize()
+    assert fk.PACKED_EPILOGUE_LAUNCHES == before + 1
+    monkeypatch.undo()
+    assert oy.dtype == torch.uint8 and oy.shape == (4, *eng.cfg.output_size(40, 64))
+    assert torch.equal(oy, want), int((oy != want).sum())
+    cpu = RaisrEngine(RaisrConfig(ratio=ratio, passes=passes, dtype=dtype, backend="pallas"),
+                      model, device="cpu")
+    cy, cu, _ = cpu.process_batch_device(y.cpu(), u.cpu(), u.cpu())
+    assert torch.equal(oy.cpu(), cy) and torch.equal(ou.cpu(), cu)
+    before = fk.PACKED_EPILOGUE_LAUNCHES
+    one = eng.process(Frame(y=y[0].cpu().numpy(), u=u[0].cpu().numpy(), v=u[0].cpu().numpy()))
+    assert fk.PACKED_EPILOGUE_LAUNCHES == before
+    assert np.array_equal(one.y, cy[0].numpy())
 
 
 # -- apply_filters on the resident bank: bank sizes and the refusal ---------------

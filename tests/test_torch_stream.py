@@ -10,6 +10,8 @@ and contracts differently from PyTorch's op-by-op float32, and a hash
 near a bin edge then picks another filter), so the test pins the bar, not 0.
 """
 
+import threading
+
 import numpy as np
 import pytest
 
@@ -82,7 +84,8 @@ def test_batched_stream_identical_to_single(folder, passes, mode):
     assert all(_same(s, b) for s, b in zip(sync, batched))
 
 
-@pytest.mark.parametrize("depth,batch,n", [(1, 1, 1), (2, 4, 3), (4, 2, 7), (2, 2, 0)])
+@pytest.mark.parametrize("depth,batch,n", [(1, 1, 1), (2, 4, 3), (4, 2, 7), (2, 2, 0),
+                                             (2, 6, 9)])
 def test_depth_batch_and_count(folder, depth, batch, n):
     """Any depth and batch, clips shorter than a group or than the queue,
     and an empty clip: the frames come out in order, none lost or doubled."""
@@ -158,3 +161,19 @@ def test_consumer_may_stop_early(folder):
     assert _same(first, engine.process(frames[0]))
     again = list(sp.process(iter(frames)))
     assert all(_same(a, engine.process(f)) for a, f in zip(again, frames))
+
+
+@pytest.mark.parametrize("stop_early", [False, True])
+def test_stage_threads_end_with_the_call(folder, stop_early):
+    """The threads that share a group's staging live as long as one process
+    call, whether the caller drains the stream or stops early."""
+    engine = _engine(folder)
+    frames = _frames(6, 16, 24, 17)
+    gen = StreamProcessor(engine, depth=2, batch=3).process(iter(frames))
+    if stop_early:
+        next(gen)
+        gen.close()
+    else:
+        out = list(gen)
+        assert all(_same(a, engine.process(f)) for a, f in zip(out, frames))
+    assert not [t for t in threading.enumerate() if t.name.startswith("raisr-stage")]
